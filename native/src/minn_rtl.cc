@@ -13,10 +13,10 @@
 // in int32, window sums in int64, smoothing via the RTL's arithmetic-shift
 // update s += (x - s) >>> shift, and the division-free threshold compare
 // (smooth << frac_bits) >= energy * thresh.  It serves as the independent
-// integer oracle for the TPU float kernels -- the same role the
+// integer oracle for the float kernels -- the same role the
 // Verilator-compiled RTL plays for the reference's NumPy golden model
 // (ref/test_minn_preamble_detector.py) -- and as a host-side streaming
-// detector for non-TPU deployments.
+// detector for hosts without an accelerator.
 //
 // Build: g++ -O3 -shared -fPIC -o libminn_rtl.so minn_rtl.cc
 
@@ -115,8 +115,8 @@ typedef struct {
 // (plane 0 = I, plane 1 = Q).  Event outputs have capacity `cap`; the return
 // value is the TOTAL number of gates seen (callers clip / detect overflow).
 // Optional per-sample traces (pass nullptr to skip): corr_total (pre-clip),
-// energy_total, smooth, above -- the exact integer counterparts of the TPU
-// kernel's MinnRTLFastState.
+// energy_total, smooth, above -- the exact integer counterparts of the float
+// datapath's MinnRTLFastState.
 int64_t minn_rtl_detect_i16(
     const int16_t* iq, int64_t n, int32_t branches, const MinnRtlParams* p,
     int32_t* ev_start, int32_t* ev_close, int32_t* ev_peak,

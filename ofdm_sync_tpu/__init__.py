@@ -1,4 +1,4 @@
-"""ofdm_sync_tpu: TPU-native OFDM preamble-synchronization framework.
+"""ofdm_sync_tpu: OFDM preamble-synchronization framework on JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 `ofdm-sync-math` reference repo: five preamble-detector families
@@ -6,7 +6,7 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 time/frequency/streaming-CFAR, plus the [A][A] grid-tested detector),
 multipath+AWGN channel emulation from measured CIRs, CFO estimation,
 LS channel estimation/equalization/EVM -- all as streaming array programs
-over device-resident IQ, sharded across TPU meshes.
+over device-resident IQ, sharded across device meshes.
 """
 
 from ofdm_sync_tpu.params import (

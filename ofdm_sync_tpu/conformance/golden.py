@@ -3,7 +3,7 @@
 This is the framework's analog of the reference's RTL-testbench golden model
 (reference ref/test_minn_preamble_detector.py:50-147): independently written
 per-sample implementations of each detector's math, in float64, used only by
-the test suite to validate the vectorized f32 TPU kernels.  They intentionally
+the test suite to validate the vectorized f32 kernels.  They intentionally
 follow the *published equations* (docs/aa_preamble_sync_design.md sections 5-9
 and the detector docstrings), not the reference source structure.
 """
@@ -213,7 +213,7 @@ def golden_gate_events(above, track, hysteresis: int, tie: str, emit_unclosed: b
        (reference ref/test_minn_preamble_detector.py:446-451).  This framework
        deliberately follows the RTL: every Minn-RTL detect path passes
        ``track=corr_positive`` with ``tie='last'`` (models/detectors.py,
-       kernels/streaming.py, kernels/pallas_minn.py), and
+       kernels/streaming.py, kernels/minn_rtl_triton.py), and
        tests/test_rtl_conformance.py re-applies the reference's own +-16-sample
        precedent when comparing against smooth-tracked expectations.  Do NOT
        "fix" either side to agree with the other."""

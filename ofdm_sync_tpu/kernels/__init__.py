@@ -1,9 +1,9 @@
-"""TPU hot-path kernels.
+"""Hot-path kernels and planar datapaths.
 
   * `streaming` -- planar-float XLA datapaths (portable, shard_map-friendly)
-  * `pallas_minn` -- fused Mosaic kernels for the flagship Minn-RTL detector
-  * `pallas_minn_tm` -- the time-major flagship kernel (tiled stream
-    buffer; runs at the HBM input floor)
+  * `minn_rtl_triton` -- the fused Minn-RTL batch detector for the GPU
+    (Pallas through Triton), with the route choice between it and XLA
+  * `streaming_chunked` -- carried-state chunk-by-chunk detection
   * `blocked` -- compile-fast two-level prefix ops for very long axes
 
 Submodule attributes are re-exported lazily (`ops.windows` depends on
@@ -17,23 +17,14 @@ _STREAMING = (
     "minn_rtl_metric_planar",
     "to_planar",
 )
-_PALLAS = (
-    "minn_rtl_detect_fused_pallas",
-    "minn_rtl_detect_planar_pallas",
-    "minn_rtl_metric_planar_pallas",
+_TRITON = (
+    "minn_rtl_detect",
+    "minn_rtl_detect_triton",
+    "minn_rtl_detect_xla",
 )
-_PALLAS_TM = (
-    "minn_rtl_detect_fused_tm",
-    "to_time_tiled",
-    "from_time_tiled",
-)
-_SUBMODULES = (
-    "blocked", "streaming", "pallas_minn", "pallas_minn_tm",
-    "pallas_tm_common", "pallas_aa", "pallas_zc", "pallas_zc_tm",
-    "pallas_common", "streaming_chunked",
-)
+_SUBMODULES = ("blocked", "streaming", "minn_rtl_triton", "streaming_chunked")
 
-__all__ = list(_STREAMING + _PALLAS + _PALLAS_TM) + list(_SUBMODULES)
+__all__ = list(_STREAMING + _TRITON) + list(_SUBMODULES)
 
 
 def __getattr__(name: str):
@@ -43,13 +34,9 @@ def __getattr__(name: str):
         return getattr(
             importlib.import_module("ofdm_sync_tpu.kernels.streaming"), name
         )
-    if name in _PALLAS:
+    if name in _TRITON:
         return getattr(
-            importlib.import_module("ofdm_sync_tpu.kernels.pallas_minn"), name
-        )
-    if name in _PALLAS_TM:
-        return getattr(
-            importlib.import_module("ofdm_sync_tpu.kernels.pallas_minn_tm"),
+            importlib.import_module("ofdm_sync_tpu.kernels.minn_rtl_triton"),
             name,
         )
     if name in _SUBMODULES:

@@ -1,11 +1,11 @@
 """Blocked prefix operations: compile-fast, tile-friendly scans for long axes.
 
 XLA's log-depth lowering of cumsum / cummax / associative_scan over a very
-long 1-D axis produces huge Mosaic programs (compile time on the TPU backend
-grows super-linearly past ~1e5 elements).  Reshaping the stream into
+long 1-D axis produces large programs whose compile time grows
+super-linearly with the axis length.  Reshaping the stream into
 (rows, BLOCK) and doing a two-level scan -- a short scan inside each 4096-pt
-block plus a tiny cross-block carry scan -- keeps programs small, compiles in
-seconds, and lays the data out as proper (sublane, lane) tiles for the VPU.
+block plus a tiny cross-block carry scan -- keeps programs small and
+compiles in seconds.
 
 This is the "4096-pt block" processing shape named by the benchmark target
 (BASELINE.md) applied to every prefix op in the hot path.  All functions

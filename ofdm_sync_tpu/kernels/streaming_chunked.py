@@ -2,9 +2,8 @@
 
 The RTL detector is a streaming device: it consumes an endless IQ stream and
 carries all its state in delay lines, running sums, the smoothing register,
-and the gate FSM (reference ref/minn_preamble_detector.sv).  The fused TPU
-kernels carry that state across grid steps *within* one call; this module
-exposes the same carries *between* calls, so a receiver can process an
+and the gate FSM (reference ref/minn_preamble_detector.sv).  This module
+exposes those carries *between* calls, so a receiver can process an
 unbounded stream chunk-by-chunk (or checkpoint/resume mid-stream -- the state
 is a plain pytree, serializable with orbax):
 
@@ -16,11 +15,11 @@ is a plain pytree, serializable with orbax):
 Exactness: feeding the concatenation of all chunks to
 `minn_rtl_detect_planar` yields the same event table bit-for-bit (tests
 assert this for random chunk splits) up to float reassociation inside a
-chunk.  The cross-chunk carry is the same closed form the Pallas kernel uses
-(kernels/pallas_common.py): (last-above index, #gates) plus per-slot
-(start, last_above, peak_idx, peak_value).
+chunk.  The cross-chunk carry is the same closed form the fused kernel uses
+between its blocks (kernels/minn_rtl_triton.py): (last-above index, #gates)
+plus per-slot (start, last_above, peak_idx, peak_value).
 
-Index horizon: global sample indices are int32 (TPU-native width, the same
+Index horizon: global sample indices are int32 (the device's native width, the same
 class of finite counter the RTL carries in its pointers), so one epoch spans
 2^31 samples (~70 s at 30.72 Msps).  A live receiver calls
 `minn_rtl_stream_rebase` after consuming events -- well before the horizon
@@ -42,10 +41,9 @@ from ofdm_sync_tpu.ops.windows import shift_right
 _I32_MAX = jnp.iinfo(jnp.int32).max
 _NEG_INF = float("-inf")
 
-# Hard bound of one index epoch: global sample indices are int32 and the
-# open-ended fused steps pin the far horizon to 2^31 - 2, so state.base +
-# chunk_len must stay strictly below this or indices silently wrap (~70 s
-# of stream at 30.72 Msps).  Call a *_rebase helper on a quiet stretch
+# Hard bound of one index epoch: global sample indices are int32, so
+# state.base + chunk_len must stay strictly below this or indices wrap (~70 s
+# of stream at 30.72 Msps).  Call `minn_rtl_stream_rebase` on a quiet stretch
 # before the headroom runs out; `epoch_headroom` is the host-side check.
 EPOCH_HORIZON = 2**31 - 2
 _EPOCH_WARN_MARGIN = 1 << 28  # ~268M samples (~8.7 s at 30.72 Msps)
@@ -58,7 +56,7 @@ def epoch_headroom(state, *, warn_margin: int = _EPOCH_WARN_MARGIN) -> int:
     drops under `warn_margin` and raises once the epoch is exhausted --
     a continuously running receiver calls this between chunks (it is a
     host-side check; `state.base` must be concrete, not a tracer) and
-    invokes the matching `*_rebase` helper on a quiet stretch well before
+    invokes `minn_rtl_stream_rebase` on a quiet stretch well before
     the horizon.
     """
     import warnings
@@ -71,8 +69,8 @@ def epoch_headroom(state, *, warn_margin: int = _EPOCH_WARN_MARGIN) -> int:
         raise OverflowError(
             f"int32 index epoch exhausted (base={base} >= {EPOCH_HORIZON}); "
             "indices from further chunks would wrap -- rebase the stream "
-            "state (minn_rtl_stream_rebase / *_fused_stream_rebase) on a "
-            "quiet stretch before this point"
+            "state (minn_rtl_stream_rebase) on a quiet stretch before this "
+            "point"
         )
     if headroom < warn_margin:
         warnings.warn(
@@ -153,7 +151,7 @@ def minn_rtl_stream_step(
     ext = jnp.concatenate([state.hist, chunk.astype(jnp.float32)], axis=-1)
     new_hist = ext[..., -H:]
 
-    # metric datapath (same algebra as kernels.pallas_minn._metric_block);
+    # metric datapath (same algebra as the fused kernel's block loop);
     # the delay-line primitive is the shared zero-primed shift
     tap = shift_right
 
@@ -193,7 +191,7 @@ def minn_rtl_stream_step(
     scaled = smooth * (1 << params.threshold_frac_bits)
     above = metric_valid & (scaled >= energy_total * float(params.threshold_value))
 
-    # --- event carry merge (host-level twin of pallas_common.event_update)
+    # --- event carry merge (the fused kernel's per-block event update)
     track = corr_pos
     above_idx = jnp.where(above, gi, jnp.int32(-1))
     la_local = jax.lax.cummax(above_idx, axis=0)
@@ -315,444 +313,3 @@ def minn_rtl_stream_finalize(
         count=jnp.sum(valid.astype(jnp.int32)),
         overflow=state.gate_count > E,
     )
-
-
-# ---------------------------------------------------------------------------
-# Fused-kernel streaming: ONE Pallas dispatch per chunk, kernel-exact carry
-# ---------------------------------------------------------------------------
-
-class MinnRTLFusedStreamState(NamedTuple):
-    """Carried state of the fused-kernel streaming receiver (a pytree).
-
-    Unlike `MinnRTLStreamState` (the XLA path, which re-derives its carries
-    with array ops), this state is EMITTED BY THE KERNEL itself
-    (`pallas_minn.minn_rtl_detect_fused_pallas(emit_state=True)`), so chunk
-    boundaries are bit-exact continuations of the kernel's own arithmetic --
-    the float-association caveat of XLA-primed state does not apply.  Each
-    step costs ONE kernel dispatch (the latency path BASELINE.md names).
-    """
-
-    hist: jax.Array    # (C, batch, H) channel-leading planar IQ tail
-    carry: jax.Array   # (batch,) f32 -- smoothing register at chunk end
-    gate: jax.Array    # (batch, 2) i32 -- [last-above global index, flag]
-    base: jax.Array    # () i32 -- global index of the next sample
-
-
-def minn_rtl_fused_stream_init(
-    params: MinnRTLStreamParams, batch: int, branches: int = 2
-) -> MinnRTLFusedStreamState:
-    Q = params.quarter_len
-    H = max(((3 * Q + 127) // 128) * 128, 128)
-    C = 2 * branches
-    return MinnRTLFusedStreamState(
-        hist=jnp.zeros((C, batch, H), jnp.float32),
-        carry=jnp.zeros((batch,), jnp.float32),
-        gate=jnp.concatenate(
-            [jnp.full((batch, 1), -1, jnp.int32),
-             jnp.zeros((batch, 1), jnp.int32)], axis=1,
-        ),
-        base=jnp.zeros((), jnp.int32),
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("params",))
-def minn_rtl_fused_stream_step(
-    state: MinnRTLFusedStreamState,
-    chunk: jax.Array,
-    *,
-    params: MinnRTLStreamParams,
-):
-    """Process one chunk through the FUSED detect kernel (one dispatch).
-
-    chunk: (C, batch, chunk_len) channel-leading planar float32,
-    chunk_len a multiple of 128.  Returns ``(new_state, GateEvents)`` --
-    the chunk's OWN event table with GLOBAL indices (fresh per chunk;
-    capacity-bounded like the RTL's timer queue).  A gate still open at
-    the chunk edge always surfaces as a trailing event (against the
-    open-ended horizon every gate finalizes "closed"; real closed-ness is
-    decided by ``stitch_chunk_tables(stream_end=...)``) and the next chunk
-    continues it via the primed gate carry; stitch per-chunk tables with
-    `stitch_chunk_tables` (gap <= h rule, the same seam semantics as the
-    sharded table merge).
-
-    Index epoch: global indices are int32 against the `EPOCH_HORIZON`
-    (2^31 - 2) far horizon -- a continuously running receiver checks
-    `epoch_headroom(state)` between chunks and calls
-    `minn_rtl_fused_stream_rebase` on a quiet stretch before it runs out
-    (~70 s of stream at 30.72 Msps per epoch).
-
-    Reference parity: the RTL consumes the same stream sample-by-sample
-    with identical state (ref/minn_preamble_detector.sv:247-384); this is
-    its chunk-granular TPU form.
-    """
-    from ofdm_sync_tpu.kernels.pallas_minn import minn_rtl_detect_fused_pallas
-
-    C, batch, Lc = chunk.shape
-    H = state.hist.shape[-1]
-    h = max(int(params.hysteresis), 1)
-    chunk = chunk.astype(jnp.float32)
-
-    # gate continuation: last-above survives iff the gap at the chunk seam
-    # is within hysteresis (same rule as _gate_init_from_tail)
-    la = state.gate[:, 0]
-    flag = ((la >= 0) & (state.base - la <= h)).astype(jnp.int32)
-    gate_init = jnp.stack([jnp.where(flag > 0, la, -1), flag], axis=1)
-
-    table, (carry_out, gate_out) = minn_rtl_detect_fused_pallas(
-        chunk,
-        quarter_len=params.quarter_len,
-        smooth_shift=params.smooth_shift,
-        threshold_value=params.threshold_value,
-        threshold_frac_bits=params.threshold_frac_bits,
-        hysteresis=params.hysteresis,
-        max_events=params.max_events,
-        tie=params.tie,
-        emit_unclosed=True,
-        block=Lc,
-        channel_leading=True,
-        base_index=state.base,
-        # open-ended stream: a far horizon keeps closes UNCLIPPED
-        # (close = last_above + h exactly), so the seam stitch rule
-        # `next.start <= prev.close` is the exact FSM gap test; the final
-        # event of a finite stream is clipped by `stitch_chunk_tables`'s
-        # `stream_end`
-        stream_len_global=EPOCH_HORIZON,
-        shard_init=(state.hist, state.carry, gate_init),
-        emit_state=True,
-    )
-    if Lc >= H:
-        new_hist = chunk[..., -H:]
-    else:
-        new_hist = jnp.concatenate([state.hist, chunk], axis=-1)[..., -H:]
-    new_state = MinnRTLFusedStreamState(
-        hist=new_hist,
-        carry=carry_out,
-        gate=gate_out,
-        base=state.base + Lc,
-    )
-    return new_state, table
-
-
-def stitch_chunk_tables(
-    tables, *, hysteresis: int, stream_end: int | None = None,
-    emit_unclosed: bool = False, tie_last: bool = True,
-    extras_list=None,
-):
-    """Host-side stitch of sequential per-chunk GateEvents into one event
-    list (NumPy dicts).  A chunk's first gate continues the previous
-    chunk's trailing gate iff ``start <= prev.close`` -- with the fused
-    stream step's UNCLIPPED closes (close = last_above + h) this is the
-    exact FSM gap test, the same closed-form cluster rule as the sharded
-    table merge (`parallel.shard._merge_shard_event_tables`).
-
-    `stream_end`: total stream length; clips the final close to the
-    one-shot kernel's semantics (close = min(last_above + h, L - 1),
-    closed iff last_above + h <= L - 1).
-
-    `extras_list`: optional per-table dict of name -> (E,) arrays of
-    capture-at-peak side channels (e.g. the AA kernel's P_re/P_im/M); the
-    winning piece's captures follow its peak through merges.
-
-    SINGLE-STREAM tables only: the fused stream steps return BATCHED
-    GateEvents ((batch, E) fields); slice one stream first, e.g.
-    ``[jax.tree.map(lambda a: a[b], t) for t in tables]``.  `tie_last`
-    must match the kernel's tie mode (pass ``tie_last=False`` for the
-    AA / ZC CFAR defaults of ``tie='first'``).
-
-    Warns (RuntimeWarning) when any chunk's table overflowed its
-    max_events capacity -- events the kernel dropped cannot be recovered
-    by the stitch -- or when any event index approaches the int32
-    `EPOCH_HORIZON` (the caller should have rebased earlier)."""
-    import warnings
-
-    import numpy as np
-
-    events = []  # list of dicts, in stream order
-    overflowed = []
-    for t_i, tb in enumerate(tables):
-        if bool(np.asarray(tb.overflow)):
-            overflowed.append(t_i)
-        count = np.asarray(tb.count)
-        if count.ndim != 0:
-            raise ValueError(
-                "stitch_chunk_tables expects single-stream tables "
-                f"(scalar count); got count shape {count.shape} -- slice "
-                "one stream first: jax.tree.map(lambda a: a[b], table)"
-            )
-        n = int(count)
-        starts = np.asarray(tb.gate_start)
-        closes = np.asarray(tb.gate_close)
-        pidxs = np.asarray(tb.peak_idx)
-        pvals = np.asarray(tb.peak_value)
-        extras_np = (
-            {name: np.asarray(arr) for name, arr in extras_list[t_i].items()}
-            if extras_list is not None else None
-        )
-        for k in range(n):
-            ev = {
-                "start": int(starts[k]),
-                "close": int(closes[k]),
-                "pidx": int(pidxs[k]),
-                "pval": float(pvals[k]),
-            }
-            if extras_np is not None:
-                ev["extras"] = {
-                    name: arr[k] for name, arr in extras_np.items()
-                }
-            if events and ev["start"] <= events[-1]["close"]:
-                prev = events[-1]
-                better = ev["pval"] > prev["pval"] or (
-                    ev["pval"] == prev["pval"]
-                    and (ev["pidx"] > prev["pidx"] if tie_last
-                         else ev["pidx"] < prev["pidx"])
-                )
-                if better:
-                    prev["pidx"], prev["pval"] = ev["pidx"], ev["pval"]
-                    if "extras" in ev:
-                        prev["extras"] = ev["extras"]
-                prev["close"] = max(prev["close"], ev["close"])
-            else:
-                events.append(ev)
-    if overflowed:
-        warnings.warn(
-            f"{len(overflowed)} chunk table(s) (indices {overflowed[:8]}...) "
-            "overflowed max_events capacity; events dropped by the kernel "
-            "are missing from the stitched list -- raise max_events or "
-            "shorten chunks",
-            RuntimeWarning,
-            stacklevel=2,
-        )
-    if events and events[-1]["close"] >= EPOCH_HORIZON - _EPOCH_WARN_MARGIN:
-        warnings.warn(
-            "event indices approach the int32 EPOCH_HORIZON; rebase the "
-            "stream state (see epoch_headroom)",
-            RuntimeWarning,
-            stacklevel=2,
-        )
-    for ev in events:
-        ev["closed"] = (
-            True if stream_end is None else ev["close"] <= stream_end - 1
-        )
-        if stream_end is not None:
-            ev["close"] = min(ev["close"], stream_end - 1)
-    if not emit_unclosed:
-        events = [e for e in events if e["closed"]]
-    return events
-
-
-class AAFusedStreamState(NamedTuple):
-    """Carried state of the fused [A][A] streaming receiver: the 2L-sample
-    IQ tail plus the kernel-emitted gate FSM carry (the AA metric has no
-    smoothing IIR -- reference sync_aa.py:421-571 /
-    docs/aa_preamble_sync_design.md §7)."""
-
-    hist: jax.Array    # (C, batch, H) channel-leading planar IQ tail
-    gate: jax.Array    # (batch, 2) i32 -- [last-above global index, flag]
-    base: jax.Array    # () i32 -- global index of the next sample
-
-
-def aa_fused_stream_init(
-    half_len: int, batch: int, branches: int = 2
-) -> AAFusedStreamState:
-    H = max(((2 * half_len + 127) // 128) * 128, 128)
-    C = 2 * branches
-    return AAFusedStreamState(
-        hist=jnp.zeros((C, batch, H), jnp.float32),
-        gate=jnp.concatenate(
-            [jnp.full((batch, 1), -1, jnp.int32),
-             jnp.zeros((batch, 1), jnp.int32)], axis=1,
-        ),
-        base=jnp.zeros((), jnp.int32),
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("half_len", "threshold", "hysteresis", "max_events",
-                     "tie"),
-)
-def aa_fused_stream_step(
-    state: AAFusedStreamState,
-    chunk: jax.Array,
-    *,
-    half_len: int,
-    threshold: float = 0.15,
-    hysteresis: int = 128,
-    max_events: int = 8,
-    tie: str = "first",
-):
-    """One fused-kernel dispatch over one [A][A] chunk.
-
-    chunk: (C, batch, chunk_len) channel-leading planar float32.  Returns
-    ``(new_state, (GateEvents, P_at_peak, M_at_peak))`` with GLOBAL event
-    indices and the in-kernel CFO capture at each peak (planar (batch, 2,
-    E)).  Stitch per-chunk tables with `stitch_chunk_tables` per stream,
-    passing ``tie_last=(tie == 'last')`` -- the AA default is
-    ``tie='first'``, so pass ``tie_last=False`` -- and the per-chunk
-    extras so the winning piece's CFO capture survives the merge.
-    Trailing open gates always surface (closed-ness against the stream end
-    is decided by ``stitch_chunk_tables(stream_end=...)``); the int32
-    index epoch is bounded by `EPOCH_HORIZON` -- check `epoch_headroom`
-    and call `aa_fused_stream_rebase` on a quiet stretch before it runs
-    out.  Reference parity: sync_aa.py:421-571 consumed chunk-by-chunk.
-    """
-    from ofdm_sync_tpu.kernels.pallas_aa import aa_detect_fused_pallas
-
-    C, batch, Lc = chunk.shape
-    H = state.hist.shape[-1]
-    h = max(int(hysteresis), 1)
-    chunk = chunk.astype(jnp.float32)
-
-    la = state.gate[:, 0]
-    flag = ((la >= 0) & (state.base - la <= h)).astype(jnp.int32)
-    gate_init = jnp.stack([jnp.where(flag > 0, la, -1), flag], axis=1)
-
-    table, P_pk, M_pk, gate_out = aa_detect_fused_pallas(
-        chunk,
-        half_len=half_len,
-        threshold=threshold,
-        hysteresis=hysteresis,
-        max_events=max_events,
-        tie=tie,
-        emit_unclosed=True,
-        block=Lc,
-        channel_leading=True,
-        base_index=state.base,
-        stream_len_global=EPOCH_HORIZON,  # open-ended; see fused Minn step
-        shard_init=(state.hist, gate_init),
-        emit_state=True,
-    )
-    if Lc >= H:
-        new_hist = chunk[..., -H:]
-    else:
-        new_hist = jnp.concatenate([state.hist, chunk], axis=-1)[..., -H:]
-    new_state = AAFusedStreamState(
-        hist=new_hist, gate=gate_out, base=state.base + Lc
-    )
-    return new_state, (table, P_pk, M_pk)
-
-
-def minn_rtl_fused_stream_rebase(
-    state: MinnRTLFusedStreamState, *, params: MinnRTLStreamParams
-) -> MinnRTLFusedStreamState:
-    """Fresh index epoch for the fused stream (same contract as
-    `minn_rtl_stream_rebase`): zero the global counter -- restarting past
-    the 3Q-1 warm-up, since the carried IQ tail keeps the metric valid --
-    and drop any stale gate carry.  Rebase on a quiet stretch; an event
-    index ``gi`` from later chunks maps to
-    ``rebase_point + gi - (3Q - 1)`` globally."""
-    valid_from = max(0, 3 * params.quarter_len - 1)
-    batch = state.gate.shape[0]
-    return MinnRTLFusedStreamState(
-        hist=state.hist,
-        carry=state.carry,
-        gate=jnp.concatenate(
-            [jnp.full((batch, 1), -1, jnp.int32),
-             jnp.zeros((batch, 1), jnp.int32)], axis=1,
-        ),
-        base=jnp.asarray(valid_from, jnp.int32),
-    )
-
-
-def aa_fused_stream_rebase(
-    state: AAFusedStreamState, *, half_len: int
-) -> AAFusedStreamState:
-    """Fresh index epoch for the fused [A][A] stream (counter restarts past
-    the 2L-1 warm-up; stale gate carry dropped -- rebase on a quiet
-    stretch)."""
-    batch = state.gate.shape[0]
-    return AAFusedStreamState(
-        hist=state.hist,
-        gate=jnp.concatenate(
-            [jnp.full((batch, 1), -1, jnp.int32),
-             jnp.zeros((batch, 1), jnp.int32)], axis=1,
-        ),
-        base=jnp.asarray(2 * half_len - 1, jnp.int32),
-    )
-
-
-class ZCCFARFusedStreamState(NamedTuple):
-    """Carried state of the fused ZC CFAR streaming receiver over
-    matched-filter magnitudes (reference zc_v2.py:288-336): the W-sample
-    magnitude tail plus the kernel-emitted gate FSM carry."""
-
-    hist: jax.Array    # (batch, H) trailing corr magnitudes
-    gate: jax.Array    # (batch, 2) i32 -- [last-above global index, flag]
-    base: jax.Array    # () i32 -- global index of the next sample
-
-
-def zc_cfar_fused_stream_init(
-    corr_window: int, batch: int
-) -> ZCCFARFusedStreamState:
-    H = max(((corr_window + 127) // 128) * 128, 128)
-    return ZCCFARFusedStreamState(
-        hist=jnp.zeros((batch, H), jnp.float32),
-        gate=jnp.concatenate(
-            [jnp.full((batch, 1), -1, jnp.int32),
-             jnp.zeros((batch, 1), jnp.int32)], axis=1,
-        ),
-        base=jnp.zeros((), jnp.int32),
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("corr_window", "threshold_value",
-                     "threshold_frac_bits", "min_corr_mag", "hysteresis",
-                     "max_events", "tie"),
-)
-def zc_cfar_fused_stream_step(
-    state: ZCCFARFusedStreamState,
-    chunk: jax.Array,
-    *,
-    corr_window: int = 2048,
-    threshold_value: int | None = None,
-    threshold_frac_bits: int = 15,
-    min_corr_mag: float = 0.3,
-    hysteresis: int = 256,
-    max_events: int = 16,
-    tie: str = "first",
-):
-    """One fused-kernel dispatch over one chunk of matched-filter
-    magnitudes ((batch, chunk_len) float32).  Returns ``(new_state,
-    GateEvents)`` with GLOBAL indices; stitch per-chunk tables with
-    `stitch_chunk_tables(tie_last=False)` (reference zc_v2 selects the
-    strongest event from the stitched list, zc_v2.py:567-576).  Trailing
-    open gates always surface (closed-ness is decided by
-    ``stitch_chunk_tables(stream_end=...)``); the int32 index epoch is
-    bounded by `EPOCH_HORIZON` -- check `epoch_headroom` between chunks."""
-    from ofdm_sync_tpu.kernels.pallas_zc import zc_cfar_detect_pallas
-
-    batch, Lc = chunk.shape
-    H = state.hist.shape[-1]
-    h = max(int(hysteresis), 1)
-    chunk = chunk.astype(jnp.float32)
-
-    la = state.gate[:, 0]
-    flag = ((la >= 0) & (state.base - la <= h)).astype(jnp.int32)
-    gate_init = jnp.stack([jnp.where(flag > 0, la, -1), flag], axis=1)
-
-    table, gate_out = zc_cfar_detect_pallas(
-        chunk,
-        corr_window=corr_window,
-        threshold_value=threshold_value,
-        threshold_frac_bits=threshold_frac_bits,
-        min_corr_mag=min_corr_mag,
-        hysteresis=hysteresis,
-        max_events=max_events,
-        tie=tie,
-        emit_unclosed=True,
-        block=Lc,
-        base_index=state.base,
-        stream_len_global=EPOCH_HORIZON,  # open-ended; see fused Minn step
-        shard_init=(state.hist, gate_init),
-        emit_state=True,
-    )
-    if Lc >= H:
-        new_hist = chunk[..., -H:]
-    else:
-        new_hist = jnp.concatenate([state.hist, chunk], axis=-1)[..., -H:]
-    new_state = ZCCFARFusedStreamState(
-        hist=new_hist, gate=gate_out, base=state.base + Lc
-    )
-    return new_state, table

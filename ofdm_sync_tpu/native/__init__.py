@@ -3,7 +3,7 @@
 The reference's native components are its four SystemVerilog RTL modules;
 this package holds their C++ bit-accurate integer models (see
 native/src/minn_rtl.cc), used as the independent fixed-point oracle for the
-TPU float kernels -- the role the Verilator co-simulation plays in the
+float kernels -- the role the Verilator co-simulation plays in the
 reference (ref/test_minn_preamble_detector.py:455-489) -- and as a host-side
 streaming detector.
 

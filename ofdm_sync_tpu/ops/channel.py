@@ -1,6 +1,6 @@
 """Channel emulation: measured-CIR FIR, AWGN, CFO, ADC quantization.
 
-TPU-first re-design of reference channel.py:15-98, core.py:123-138 and
+Array-first re-design of reference channel.py:15-98, core.py:123-138 and
 sync_aa.py:263-315, 577-645:
   * the per-branch ``np.convolve`` (reference channel.py:95) becomes a single
     batched FFT convolution (one radix FFT over all branches at once);
@@ -93,10 +93,8 @@ def fft_convolve_full(x: jax.Array, taps: jax.Array) -> jax.Array:
     yields (..., L+T-1).  Used for both the channel FIR and the ZC matched
     filters (reference channel.py:95, zc.py:115-117, zc_v2.py:244-271).
 
-    For LONG streams on TPU prefer `fft_convolve_full_ols`: one monolithic
-    next_fast_len(L+T-1)-point FFT measures ~0.5 G samples/s on v5e at
-    L=2^18 while batched-small-block overlap-save measures ~0.67 G
-    (tools/perf_probe13.py); this form is kept as the bit-parity baseline.
+    `fft_convolve_full_ols` is the overlap-save form for long streams;
+    this form is kept as the bit-parity baseline.
     """
     L = x.shape[-1]
     T = taps.shape[-1]
@@ -114,9 +112,7 @@ def fft_convolve_full_ols(
     one monolithic (L+T-1)-point transform.
 
     Same output as `fft_convolve_full` up to f32 rounding (the FFT
-    factorization differs), measured 1.37x faster on v5e at the production
-    matched-filter shape (T=2048, L=2^18 -- tools/perf_probe13.py; the
-    host-side equivalence check lives there too).  ``taps`` must be 1-D
+    factorization differs).  ``taps`` must be 1-D
     here (the matched-filter case, reference zc_v2.py:244-271); use the
     monolithic form for per-branch CIR banks.
     """
@@ -268,7 +264,7 @@ def apply_cfo(samples: jax.Array, cfo_hz: float, fs_hz: float) -> jax.Array:
     pre-reduced mod 2*pi in double precision on the host, keeping the tone
     accurate (phase error ~1e-3 rad) for arbitrarily long streams: a plain
     float32 ``arange`` collapses past 2^24 samples (consecutive indices
-    become equal) and float64 compute is unavailable on TPU.
+    become equal) and the device computes in float32.
     """
     import math
 

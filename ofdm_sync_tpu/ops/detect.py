@@ -3,7 +3,8 @@
 The reference implements detection three times as sequential per-sample FSMs
 (reference minn_rtl.py:750-825, zc_v2.py:360-450, sync_aa.py:495-568; RTL
 form in reference ref/minn_preamble_detector.sv:337-384).  A naive port would
-be a `lax.scan` over every sample -- the one thing that serializes a TPU.
+be a `lax.scan` over every sample -- the one thing that serializes an
+accelerator.
 
 Key observation: the FSM's semantics are *closed-form*.  All three variants
 share one rule: a gate opens at an above-threshold sample (when no gate is
@@ -15,7 +16,7 @@ open) and closes at the h-th consecutive below-threshold sample.  Therefore
 
 Clusters fall out of a running maximum (cummax of above-sample indices) and
 per-gate reductions are `jax.ops.segment_*` with a static event capacity --
-zero sequential steps, O(L) work, log-depth on TPU.
+zero sequential steps, O(L) work, log-depth.
 
 Variant differences are parameterized:
   * which array is peak-tracked (smoothed corr / |corr| / |P|^2),
@@ -119,7 +120,7 @@ def extract_gate_events(
 
     # Per-gate reductions, unrolled over the (small, static) event capacity.
     # A one-hot masked reduction per slot beats scatter-based segment ops by
-    # >10x on the TPU backend: each slot is a fused compare + reduce sweep,
+    # a wide margin: each slot is a fused compare + reduce sweep,
     # and XLA fuses all slots into few passes over the arrays.
     neg_inf = jnp.full((), -jnp.inf, track.dtype)
     gate_start_l, peak_val_l, peak_idx_l, last_above_l = [], [], [], []
@@ -172,6 +173,132 @@ def extract_gate_events(
         count=count,
         overflow=total > max_events,
     )
+
+
+def merge_stacked_event_tables(
+    gathered, *, h: int, E: int, K: int, tie_last: bool, emit_unclosed: bool,
+):
+    """Merge event tables of consecutive stream pieces, stacked on a leading
+    axis in time order, into one table.  `gathered` is (start, close,
+    peak_idx, packed_f32(K*E), closed, count, overflow), each
+    (n_pieces, B, ...), every piece emitted with global indices and its
+    trailing gate open (`emit_unclosed=True`).
+
+    The seam rule is the closed-form cluster rule: a piece's first gate
+    continues the previous piece's trailing gate iff the above gap across
+    the seam is <= h.  Peak ties are index-aware ('last' -> the larger
+    index wins among equal values); the later close wins.  Used for the
+    time segments of the GPU kernel and, after an all_gather, for the seq
+    shards of `parallel.shard`.  Returns the 8 `GateEvents` fields, then
+    K-1 extra packed fields."""
+    i32 = jnp.int32
+    B = gathered[0].shape[1]
+    slot = jnp.arange(E, dtype=i32)[None, :]
+
+    def step(carry, sh):
+        (o_start, o_close, o_pidx, o_pval, o_closed, cnt, ovf, trail_la,
+         trail_kept) = carry
+        s_start, s_close, s_pidx, s_pval, s_closed, s_cnt, s_ovf = sh
+        has = s_cnt > 0
+        # a continuation merges only into a trailing event the table kept
+        # (one dropped for capacity stays dropped, as in the one-shot FSM)
+        merge = has & trail_kept & (s_start[:, 0] - trail_la <= h)
+
+        # merge the shard's first piece into the trailing output event.
+        # o_pval/s_pval carry K packed f32 fields per slot (peak_value at
+        # field 0 decides `take`; extras follow the same selection).
+        last_slot = jnp.clip(cnt - 1, 0, E - 1)[:, None]
+        sel_last = (slot == last_slot) & merge[:, None]
+        fsel_last = jnp.tile(sel_last, (1, K))
+        cur_pv = jnp.take_along_axis(o_pval, last_slot, 1)[:, 0]
+        cur_pi = jnp.take_along_axis(o_pidx, last_slot, 1)[:, 0]
+        new_pv, new_pi = s_pval[:, 0], s_pidx[:, 0]
+        if tie_last:
+            take = (new_pv > cur_pv) | ((new_pv == cur_pv) & (new_pi > cur_pi))
+        else:
+            take = (new_pv > cur_pv) | ((new_pv == cur_pv) & (new_pi < cur_pi))
+        cur_f = jnp.take_along_axis(
+            o_pval, last_slot + E * jnp.arange(K, dtype=i32)[None, :], 1
+        )  # (B, K): current packed fields of the trailing event
+        new_f = s_pval[
+            :, jnp.arange(K, dtype=i32) * E
+        ]  # (B, K): the piece's slot-0 packed fields
+        mg_f = jnp.where(take[:, None], new_f, cur_f)
+        mg_pi = jnp.where(take, new_pi, cur_pi)
+        o_pval = jnp.where(
+            fsel_last, jnp.repeat(mg_f, E, axis=-1), o_pval
+        )
+        o_pidx = jnp.where(sel_last, mg_pi[:, None], o_pidx)
+        # close: the LATER close wins (a gap-only continuation piece -- a
+        # primed gate with no above samples in this shard -- carries an
+        # earlier/garbage close and must not regress the trailing event)
+        cur_close = jnp.take_along_axis(o_close, last_slot, 1)[:, 0]
+        cur_closed = jnp.take_along_axis(o_closed, last_slot, 1)[:, 0]
+        adv = s_close[:, 0] >= cur_close
+        mg_close = jnp.where(adv, s_close[:, 0], cur_close)
+        mg_closed = jnp.where(adv, s_closed[:, 0], cur_closed)
+        o_close = jnp.where(sel_last, mg_close[:, None], o_close)
+        o_closed = jnp.where(sel_last, mg_closed[:, None], o_closed)
+        # (gate_start keeps the earlier piece's value: the trailing output
+        #  event opened strictly before the seam)
+
+        # append the remaining pieces in order
+        drop = merge.astype(i32)
+        koff = jnp.arange(K, dtype=i32)[None, :] * E  # packed-field offsets
+        for e in range(E):
+            src_ok = (e < s_cnt) & ~(merge & (e == 0))
+            dst = cnt + e - drop
+            sel = src_ok[:, None] & (slot == dst[:, None])
+            fsel = jnp.tile(sel, (1, K))
+            o_start = jnp.where(sel, s_start[:, e : e + 1], o_start)
+            o_close = jnp.where(sel, s_close[:, e : e + 1], o_close)
+            o_pidx = jnp.where(sel, s_pidx[:, e : e + 1], o_pidx)
+            o_pval = jnp.where(
+                fsel,
+                jnp.repeat(jnp.take_along_axis(s_pval, e + koff, 1), E,
+                           axis=-1),
+                o_pval,
+            )
+            o_closed = jnp.where(sel, s_closed[:, e : e + 1], o_closed)
+        total = cnt + jnp.where(has, s_cnt - drop, 0)
+        ovf = ovf | s_ovf | (total > E)
+        cnt = jnp.minimum(total, E)
+        s_last = jnp.clip(s_cnt - 1, 0, E - 1)[:, None]
+        s_trail_close = jnp.take_along_axis(s_close, s_last, 1)[:, 0]
+        trail_la = jnp.where(has, s_trail_close - h, trail_la)
+        appended = has & (s_cnt - drop > 0)
+        trail_kept = jnp.where(appended, total <= E, trail_kept)
+        return (o_start, o_close, o_pidx, o_pval, o_closed, cnt, ovf,
+                trail_la, trail_kept), None
+
+    z = jnp.zeros((B, E), i32)
+    init = (
+        z, z, z, jnp.zeros((B, K * E), jnp.float32), jnp.zeros((B, E), bool),
+        jnp.zeros((B,), i32), jnp.zeros((B,), bool),
+        jnp.full((B,), jnp.iinfo(jnp.int32).min // 2, i32),
+        jnp.zeros((B,), bool),
+    )
+    (o_start, o_close, o_pidx, o_pval, o_closed, cnt, ovf, _, _), _ = (
+        jax.lax.scan(step, init, tuple(gathered))
+    )
+    exists = slot < cnt[:, None]
+    valid = exists & (o_closed | emit_unclosed)
+    z0 = jnp.int32(0)
+    fexists = jnp.tile(exists, (1, K))
+    fvals = jnp.where(fexists, o_pval, jnp.float32(0.0))
+    out = (
+        valid,
+        o_closed & exists,
+        jnp.where(exists, o_start, z0),
+        jnp.where(exists, o_close, z0),
+        jnp.where(exists, o_pidx, z0),
+        fvals[:, :E],
+        jnp.sum(valid.astype(i32), axis=-1),
+        ovf,
+    )
+    extra_out = tuple(fvals[:, k * E : (k + 1) * E] for k in range(1, K))
+    return out + extra_out
+
 
 
 def gate_open_mask(above: jax.Array, hysteresis: int, valid_from: int = 0) -> jax.Array:

@@ -1,7 +1,7 @@
 """Estimation: CFO (4 CP-correlation variants), LS channel, equalization,
 EVM, and residual-timing-from-phase-slope.
 
-TPU-native re-expression of reference core.py:179-469.  The reference's
+Vectorized re-expression of reference core.py:179-469.  The reference's
 per-offset Python loops over CP correlations (reference core.py:224-228,
 258-262, 292-300, 328-333) all reduce to ONE shared primitive: the
 branch-summed lag-N_FFT product followed by a windowed sum -- computed once,

@@ -384,7 +384,7 @@ def assemble_frame(*symbols: np.ndarray, pre_pad: int = 0, post_pad: int = 0) ->
 
 
 # ---------------------------------------------------------------------------
-# On-device batched generation (new capability: TPU-scale stimulus)
+# On-device batched generation (new capability: accelerator-scale stimulus)
 # ---------------------------------------------------------------------------
 
 def batched_qpsk_frames(
@@ -395,7 +395,7 @@ def batched_qpsk_frames(
     Returns (time_symbols [batch, n_fft(+cp)], used_values [batch, num_active])
     in complex64.  This is the scale path the reference lacks: the host-RNG
     builders above top out at ~1e5 frames/s; this generates millions via
-    threefry + batched IFFT on the TPU.
+    threefry + batched IFFT on the device.
     """
     idx = jnp.asarray(centered_subcarrier_indices(sys.num_active))
     m = jax.random.randint(key, (batch, sys.num_active), 0, 4)

@@ -2,19 +2,21 @@
 in `parallel.shard` run unchanged over the global device mesh.
 
 The reference is single-process NumPy (SURVEY section 2.5); this is the
-framework's scale-out layer.  Topology guidance: put the ``seq`` axis on
-the fastest links (ICI within a slice) -- its halo exchanges
-(`jax.lax.ppermute` of max(3Q, 2L, W+R-1) samples per boundary per step)
-and the event-merge collectives are latency-sensitive -- and the ``data``
-axis across hosts/DCN, where independent streams need no communication at
-all.  `make_global_stream_mesh` does exactly that by keeping ``seq`` minor
-(devices within a host are adjacent in `jax.devices()` order).
+framework's scale-out layer.  The cards of one host reach each other all
+to all at one rate (NVLink), so within a host the mesh follows the
+algorithm alone.  Across hosts, keep the ``seq`` axis inside a host -- its
+halo exchanges (`jax.lax.ppermute` of a few thousand samples per boundary
+per step) and the event-merge collectives are latency-sensitive -- and put
+the ``data`` axis across hosts, where independent streams need no
+communication at all.  `make_global_stream_mesh` does exactly that by
+keeping ``seq`` minor (devices within a host are adjacent in
+`jax.devices()` order).
 
 Typical multi-host launch (one process per host)::
 
     from ofdm_sync_tpu.parallel import distributed, shard
-    distributed.initialize()                 # env-driven (TPU pods: no args)
-    mesh = distributed.make_global_stream_mesh(n_seq=8)
+    distributed.initialize("host0:1234", num_processes=2, process_id=rank)
+    mesh = distributed.make_global_stream_mesh(n_seq=4)
     table = shard.sharded_minn_rtl_detect_fused(iq, mesh, ...)
 
 Single-process use (tests, one chip, the CPU virtual-device mesh) needs no
@@ -38,9 +40,9 @@ def initialize(
 ) -> None:
     """Join the multi-process JAX runtime (idempotent).
 
-    On TPU pods all arguments come from the environment and may be omitted;
-    elsewhere pass the coordinator's ``host:port``, the process count, and
-    this process's rank (`jax.distributed.initialize` semantics).  Must be
+    Pass the coordinator's ``host:port``, the process count, and this
+    process's rank (`jax.distributed.initialize` semantics); only a cluster
+    environment that JAX detects by itself may omit them.  Must be
     called BEFORE anything touches the XLA backend (jax.devices() etc.).
     After this returns, `jax.devices()` is the GLOBAL device list and every
     process must execute the same sharded program (SPMD).
@@ -70,9 +72,9 @@ def initialize(
 def make_global_stream_mesh(n_data: int | None = None, n_seq: int | None = None):
     """(data, seq) mesh over ALL processes' devices.
 
-    Defaults: ``seq`` spans the devices of one host (ICI-adjacent in device
-    order) and ``data`` spans hosts -- halo exchange rides ICI, the
-    embarrassingly-parallel stream axis rides DCN.  Pass explicit sizes to
+    Defaults: ``seq`` spans the devices of one host (adjacent in device
+    order) and ``data`` spans hosts -- halo exchange stays inside a host,
+    the embarrassingly-parallel stream axis crosses hosts.  Pass explicit sizes to
     override (their product must equal the global device count).
     """
     total = len(jax.devices())

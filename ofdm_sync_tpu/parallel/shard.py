@@ -1,13 +1,13 @@
 """Multi-chip sharding: mesh construction, halo exchange, blocked scans.
 
 The reference is single-process NumPy (SURVEY section 2.5); this module is
-the TPU-native scaling layer it lacks.  Two parallel axes map to the math:
+the scaling layer it lacks.  Two parallel axes map to the math:
 
   * ``data``: independent streams / sweep configs -- embarrassingly parallel
     (the reference's serial grid loops, reference sync_aa.py:829-899).
   * ``seq``: the IQ time axis -- sequence parallelism via overlap-save.
     Every detector metric is a function of a bounded window, so each shard
-    needs only a halo of neighbor samples (``ppermute`` over ICI) to compute
+    needs only a halo of neighbor samples (one ``ppermute``) to compute
     its metric chunk EXACTLY; the only unbounded-history op is the RTL
     smoothing IIR, handled with an exact blocked linear-recurrence scan
     (per-shard scan + one tiny cross-shard carry fix-up).
@@ -24,6 +24,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
+
+from ofdm_sync_tpu.ops.detect import merge_stacked_event_tables
 
 
 def make_stream_mesh(
@@ -85,7 +87,7 @@ def blocked_linear_recurrence(a: jax.Array, b: jax.Array, axis_name: str) -> jax
     Per-shard associative scan from zero, then a carry fix-up:
     ``s = s_local + s_carry_in * cumprod(a)`` where the incoming carry is the
     exclusive prefix-combination of per-shard (prod a, final s).  The carry
-    combine is a tiny all-gather of 2 scalars per shard over ICI.
+    combine is a tiny all-gather of 2 scalars per shard.
     Call INSIDE shard_map.
     """
     from ofdm_sync_tpu.ops.windows import linear_recurrence
@@ -109,64 +111,6 @@ def blocked_linear_recurrence(a: jax.Array, b: jax.Array, axis_name: str) -> jax
     _, carries = jax.lax.scan(step, jnp.zeros_like(S_tot), (A_all, S_all))
     my_carry = carries[idx]
     return s_local + my_carry[..., None] * cum_a
-
-
-# ---------------------------------------------------------------------------
-# Shared shard-priming helpers (the fused per-shard detection paths)
-# ---------------------------------------------------------------------------
-
-def _shard_left_halo(blk, W: int, n_seq: int, axis_name: str = "seq"):
-    """One ppermute of the trailing W samples to the right neighbor (zeros
-    at shard 0), converted to f32 for the XLA priming passes (int16
-    products would overflow).
-
-    NOTE (float association): the priming passes recompute threshold bits
-    with XLA-associated sums (cumsum / running sums) rather than the
-    kernels' pairwise ladders, so a metric sitting within an ulp of the
-    threshold in the final h halo samples could prime a gate state that
-    disagrees with the neighbor shard's emitted table.  This is the same
-    association caveat as every sharded==unsharded guarantee in this
-    module.  Measured behavior at the knife edge
-    (tests/test_sharded_detect.py::test_sharded_fused_seam_ulp_adversarial
-    bisects a stimulus gain until the compare at the last pre-seam sample
-    sits within one f32 ulp): tables remained bit-identical at the
-    boundary and +/-16 ulps around it.  If the caveat ever does fire, the
-    envelope is bounded by construction: the merged table can only differ
-    by one seam-local gate merge/split (count +/-1) -- never a dropped or
-    duplicated detection (asserted by the same test).
-    """
-    sidx = jax.lax.axis_index(axis_name)
-    tail = blk[..., -W:]
-    from_left = jax.lax.ppermute(
-        tail, axis_name, [(i, i + 1) for i in range(n_seq - 1)]
-    )
-    halo = jnp.where(sidx > 0, from_left, jnp.zeros_like(from_left))
-    if halo.dtype != jnp.float32:
-        halo = halo.astype(jnp.float32)
-    return halo
-
-
-def _gate_init_from_tail(above_tail, gi_tail):
-    """(last-above global index, open-gate flag) from the halo's final-h
-    above-bits -- the gate-FSM priming contract of the fused kernels."""
-    la = jnp.max(jnp.where(above_tail, gi_tail, jnp.int32(-1)), axis=-1)
-    return jnp.stack([la, (la >= 0).astype(jnp.int32)], axis=-1)
-
-
-def _minn_halo_width(Q: int, smooth_shift: int, h: int) -> int:
-    """Left-halo width (samples) that makes per-shard Minn-RTL priming
-    exact: 3Q delay-line reach + the truncated constant-decay scan's memory
-    (sum of the doubling steps `pallas_common.const_decay_scan` executes
-    before decay**step <= 2^-45; sub-ulp beyond that) + the h-sample tail
-    whose above-bits prime the gate FSM."""
-    alpha = 1.0 / (1 << smooth_shift) if smooth_shift > 0 else 1.0
-    decay = 1.0 - alpha
-    scan_mem = 0
-    step = 1
-    while np.float32(decay**step) > 2.0**-45:
-        scan_mem += step
-        step *= 2
-    return 3 * Q + scan_mem + 1 + h
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +312,7 @@ def sharded_minn_rtl_planar(
     iq: (batch, branches, 2, L) float32 with batch sharded over mesh axis
     'data' and L over 'seq'.  The flagship multi-chip step: data parallelism
     over streams, sequence parallelism over time with halo exchange + blocked
-    IIR scan over ICI.  Returns (corr_positive, smooth, energy_total, above),
+    IIR scan.  Returns (corr_positive, smooth, energy_total, above),
     each (batch, L) sharded P('data', 'seq').
     """
     Q = quarter_len
@@ -461,7 +405,7 @@ def _cross_shard_event_merge(
     <= h, reference minn_rtl.py:750-825): the only cross-shard state is
     (last-above index, #clusters), combined with exclusive scans over
     all-gathered per-shard summaries; per-slot reductions combine with
-    pmin/pmax over ICI.  Peak ties resolve globally ('last' -> highest index
+    pmin/pmax.  Peak ties resolve globally ('last' -> highest index
     among value ties, as the RTL's >= update).
     """
     I32_MAX = jnp.iinfo(jnp.int32).max
@@ -623,7 +567,7 @@ def sharded_minn_rtl_detect(
     kernels (gates = above-clusters with gaps <= h): the only cross-shard
     state is (last-above index, #clusters), combined with exclusive scans
     over all-gathered per-shard summaries; per-slot reductions then combine
-    with pmin/pmax over ICI.  Peak ties resolve globally ('last' -> highest
+    with pmin/pmax.  Peak ties resolve globally ('last' -> highest
     index among value ties, as the RTL's >= update).
     """
     from ofdm_sync_tpu.ops.detect import GateEvents
@@ -709,365 +653,91 @@ def sharded_minn_rtl_detect_fused(
     threshold_frac_bits: int,
     hysteresis: int,
     max_events: int = 8,
-    tie: str = "last",
     emit_unclosed: bool = False,
-    kernel_block: int = 16384,
-    batch_tile: int = 8,
-    channel_leading: bool = False,
-    interpret: bool | None = None,
+    interpret: bool = False,
 ):
-    """The production multi-chip detection step: per-shard **fully-fused
-    Pallas detect kernel** (metric + smoothing + gate/peak FSM in VMEM) +
-    a table-level collective event merge.
+    """Multi-device Minn-RTL detection on the fused GPU kernel
+    (`kernels.minn_rtl_triton`) + a table-level collective event merge.
 
-    iq: (batch, branches, 2, L) float32, batch over 'data', L over 'seq';
-    with `channel_leading=True`, the framework-native (2*branches, batch, L)
-    layout (rows [b0_i, b0_q, b1_i, b1_q]), which avoids the per-shard HBM
-    layout transpose entirely.
+    iq: (2*branches, batch, L) channel-leading planar IQ, float32 or int16,
+    batch over 'data', L over 'seq'.  Per shard, ONE ppermute brings the
+    W = `minn_rtl_triton.halo_len` samples before the shard from the left
+    neighbour (zeros at shard 0; int16 stays int16 on the wire).  The
+    kernel reads them as its `lead`: 3Q samples rebuild the window sums,
+    the rest run the smoothing IIR until the missing history has decayed
+    below 2^-45 of its state, and the last h prime the gate FSM -- the same
+    algebra the kernel uses between its own time segments.  The kernel
+    emits per-shard tables with global indices and trailing gates open;
+    `_merge_shard_event_tables` stitches seam-spanning gates (gap <= h
+    rule, index-aware peak ties, later close wins) from one all_gather of
+    the tables -- a few hundred bytes per shard.  Returns GateEvents with
+    batch over 'data', replicated over 'seq', equal to the unsharded
+    detection (tests place gates on shard boundaries).
 
-    Per shard: ONE ppermute brings a W = 3Q + scan-memory + h sample halo
-    from the left neighbor, which PRIMES the single-chip fused detect
-    kernel's streaming scratch (IQ history rows directly; smoothing carry
-    and gate-FSM state from a small XLA metric pass over the halo) -- the
-    halo is never concatenated onto the stream, so the per-chip cost IS the
-    single-chip fused-kernel cost (measured 1.04x, bench_scaling.py;
-    round 1's corr/energy + XLA-stitch two-phase measured 3.5x).  The
-    kernel runs in shard mode (`base_index` = global offset via an SMEM
-    scalar), so emitted event indices are global.
-
-    Correctness of the priming: the truncated constant-decay scan's memory
-    is the lags its doubling steps cover (`pallas_common.const_decay_scan`
-    skips steps with decay**step <= 2^-45) -- 256 samples at the
-    reference's smooth_shift=3, ~2k at smooth_shift=6 -- and W reserves
-    exactly that runway after the halo's own 3Q warm-up, so the carried
-    smoothing state is sub-ulp-converged for ANY smooth_shift; the
-    window-ladder trees are translation-invariant.  A gate still open at
-    the seam is continued via the primed last-above index (computed from
-    the halo's final h samples, hence the +h in W), so the seam gap
-    samples are peak-tracked by the right shard; `_merge_shard_event_
-    tables` then stitches seam-spanning gates (gap <= h rule, index-aware
-    peak ties, later close wins) from the all-gathered per-shard tables --
-    a few hundred bytes per shard instead of a per-sample array merge.
-    Returns GateEvents with batch over 'data', replicated over 'seq' --
-    equal to the unsharded fused detection (tests place gates on shard
-    boundaries).
+    The kernel needs a GPU; `interpret=True` runs it in the Pallas
+    interpreter (tests on a CPU mesh).  `sharded_minn_rtl_detect` is the
+    XLA form for other backends.
     """
-    from ofdm_sync_tpu.kernels.pallas_minn import minn_rtl_detect_fused_pallas
+    from ofdm_sync_tpu.kernels import minn_rtl_triton as mt
     from ofdm_sync_tpu.ops.detect import GateEvents
 
     Q = quarter_len
-    history = 3 * Q
     n = iq.shape[-1]
     n_seq = mesh.shape["seq"]
     n_data = mesh.shape["data"]
-    batch_dim = iq.shape[1] if channel_leading else iq.shape[0]
-    if n % n_seq or batch_dim % n_data:
+    if n % n_seq or iq.shape[1] % n_data:
         raise ValueError("batch/stream dims not divisible by mesh axes")
+    if not mt.use_kernel(Q, smooth_shift, hysteresis, interpret):
+        raise ValueError(
+            "the fused kernel runs on a GPU (or with interpret=True) for a "
+            "configuration `minn_rtl_triton.supports`; use "
+            "sharded_minn_rtl_detect otherwise"
+        )
     block = n // n_seq
     h = max(int(hysteresis), 1)
-    tie_last = tie == "last"
-
-    from ofdm_sync_tpu.kernels.streaming import minn_rtl_metric_planar
-
-    valid_from = max(0, 3 * Q - 1)
-    W = _minn_halo_width(Q, smooth_shift, h)
+    W = mt.halo_len(Q, smooth_shift, hysteresis)
     if block < W:
         raise ValueError(
             f"seq shard of {block} samples is shorter than the W={W} halo "
-            f"(3Q delay-line reach + smoothing runway at "
-            f"smooth_shift={smooth_shift} + hysteresis={h}); "
-            "use fewer seq shards"
+            f"(3Q window reach + smoothing runway at smooth_shift="
+            f"{smooth_shift} + hysteresis={h}); use fewer seq shards"
         )
 
     def shard_fn(blk):
-        # blk: (B_loc, branches, 2, block), or (C, B_loc, block) when
-        # channel-leading.  The halo is NOT concatenated onto the stream
-        # (that materializes a full HBM copy of the shard -- measured 23%
-        # of wall, bench_scaling.py r2); instead it primes the fused
-        # kernel's streaming scratch: delay-line history rows directly,
-        # smoothing carry and gate state via a small XLA metric pass over
-        # the W halo samples (positions >= 3Q-1 of the halo have full
-        # in-halo tap support, and the scan's 257-sample runway makes the
-        # carry sub-ulp-exact).
+        # blk: (C, B_loc, block)
         sidx = jax.lax.axis_index("seq")
-        halo = _shard_left_halo(blk, W, n_seq)
-
-        # halo metric in natural (batch, branches, 2, W) layout (tiny)
-        if channel_leading:
-            hb = halo.transpose(1, 0, 2)
-            hb = hb.reshape(hb.shape[0], hb.shape[1] // 2, 2, W)
-        else:
-            hb = halo
-        st = minn_rtl_metric_planar(
-            hb, quarter_len=Q, smooth_shift=smooth_shift,
-            threshold_value=threshold_value,
-            threshold_frac_bits=threshold_frac_bits,
+        from_left = jax.lax.ppermute(
+            blk[..., -W:], "seq", [(i, i + 1) for i in range(n_seq - 1)]
         )
-        carry_init = st.smooth_metric[..., -1]
-        shard_start = sidx * block
-        gi_tail = shard_start - h + jnp.arange(h, dtype=jnp.int32)
-        above_tail = st.above_threshold[..., -h:] & (gi_tail >= valid_from)
-        gate_init = _gate_init_from_tail(above_tail, gi_tail)
-        hist_init = halo  # wrapper right-trims to its hist width
-        if not channel_leading:
-            # kernel expects channel-leading (C, batch, W) init rows
-            bsz = hist_init.shape[0]
-            hist_init = hist_init.reshape(bsz, -1, W).transpose(1, 0, 2)
-
-        table = minn_rtl_detect_fused_pallas(
-            blk,
+        halo = jnp.where(sidx > 0, from_left, jnp.zeros_like(from_left))
+        table = mt.minn_rtl_detect_triton(
+            jnp.concatenate([halo, blk], axis=-1),
             quarter_len=Q,
             smooth_shift=smooth_shift,
             threshold_value=threshold_value,
             threshold_frac_bits=threshold_frac_bits,
             hysteresis=hysteresis,
             max_events=max_events,
-            tie=tie,
             emit_unclosed=True,  # boundary gates must surface for merging
-            block=kernel_block,
-            batch_tile=batch_tile,
-            channel_leading=channel_leading,
+            stream_len=n,
+            lead=W,
+            base=sidx * block,
             interpret=interpret,
-            base_index=shard_start,
-            stream_len_global=n,
-            shard_init=(hist_init, carry_init, gate_init),
         )
         return _merge_shard_event_tables(
-            table, axis_name="seq", h=h, E=max_events, tie_last=tie_last,
+            table, axis_name="seq", h=h, E=max_events, tie_last=True,
             emit_unclosed=emit_unclosed,
         )
 
-    spec_in = (
-        P(None, "data", "seq") if channel_leading
-        else P("data", None, None, "seq")
-    )
     rep = P("data")
     fn = shard_map(
         shard_fn,
         mesh=mesh,
-        in_specs=(spec_in,),
-        out_specs=(rep, rep, rep, rep, rep, rep, rep, rep),
-        check_vma=False,
-    )
-    valid, closed, gs, gc, pi, pv, count, overflow = fn(iq)
-    return GateEvents(
-        valid=valid, closed=closed, gate_start=gs, gate_close=gc,
-        peak_idx=pi, peak_value=pv, count=count, overflow=overflow,
-    )
-
-
-def sharded_minn_rtl_detect_fused_tm(
-    x_tiled: jax.Array,
-    mesh: Mesh,
-    *,
-    quarter_len: int,
-    smooth_shift: int,
-    threshold_value: int,
-    threshold_frac_bits: int,
-    hysteresis: int,
-    stream_len: int,
-    channels: int = 4,
-    rows: int = 8192,
-    batch: int | None = None,
-    max_events: int = 8,
-    tie: str = "last",
-    emit_unclosed: bool = False,
-    interpret: bool | None = None,
-    overlap_halo: bool | None = None,
-):
-    """Multi-chip Minn-RTL detection on the FLAGSHIP time-major kernel
-    (`pallas_minn_tm.minn_rtl_detect_fused_tm`, the headline-rate kernel):
-    per seq shard, one left-halo ppermute primes the full fused TM kernel's
-    streaming scratch, and the per-shard global event tables are stitched
-    with the single-all_gather table merge.
-
-    x_tiled: the tiled stream buffer reshaped to (G, NT, C*rows, 128) --
-    i.e. `to_time_tiled(x, rows)[0].reshape(G, NT, C*rows, 128)` -- float32
-    or int16 (int16 halos ride the ppermute at half the bytes and are
-    bit-identical; the kernel converts in VMEM).  Groups of 128 streams
-    shard over 'data', time blocks over 'seq' (NT % n_seq == 0,
-    G % n_data == 0); `stream_len` is the true per-stream length (padding
-    rows allowed only in the final seq shard).  Returns GateEvents with
-    (G*128, max_events) tables (sliced to `batch` when given), batch over
-    'data', replicated over 'seq' -- equal to the unsharded TM kernel.
-
-    Priming and merge semantics are identical to
-    `sharded_minn_rtl_detect_fused` (same W halo math, same XLA halo
-    metric pass, same `_merge_shard_event_tables`); only the kernel and
-    the halo's row-layout slicing differ.  Reference parity:
-    ref/minn_preamble_detector.sv:247-384 (semantics unchanged).
-
-    HALO OVERLAP (`overlap_halo`, default on when NT_loc >= 2): only the
-    FIRST local time block needs the neighbor's halo, so the kernel is
-    split into an interior call over blocks 1..NT_loc-1 -- primed from the
-    shard's OWN block-0 tail, hence with NO data dependence on the
-    ppermute -- and a 1-block call primed by the remote halo; the two
-    tables are stitched with the same seam rule (`_merge_stacked_event_
-    tables`, no collective) before the cross-shard merge.  XLA's latency-
-    hiding scheduler can then run the halo transfer concurrently with the
-    interior call ((NT_loc-1)/NT_loc of the shard's work), hiding the DCN
-    halo entirely for NT_loc >= ~2; see bench_scaling.py's overlap
-    projection.  Event tables are identical either way (the local split
-    uses the exact seam machinery the shard seams use).
-    """
-    from ofdm_sync_tpu.kernels.pallas_minn_tm import (
-        LANES, minn_rtl_detect_fused_tm,
-    )
-    from ofdm_sync_tpu.kernels.streaming import minn_rtl_metric_planar
-    from ofdm_sync_tpu.ops.detect import GateEvents
-
-    Q = quarter_len
-    C = channels
-    R = rows
-    G, NT, CR, lanes = x_tiled.shape
-    if CR != C * R or lanes != LANES:
-        raise ValueError(
-            f"x_tiled must be (G, NT, {C}*{R}, {LANES}); got {x_tiled.shape}"
-        )
-    n_seq = mesh.shape["seq"]
-    n_data = mesh.shape["data"]
-    if NT % n_seq or G % n_data:
-        raise ValueError("G/NT not divisible by mesh (data, seq) axes")
-    NT_loc = NT // n_seq
-    block = NT_loc * R
-    h = max(int(hysteresis), 1)
-    valid_from = max(0, 3 * Q - 1)
-    W = _minn_halo_width(Q, smooth_shift, h)
-    if block < W:
-        raise ValueError(
-            f"seq shard of {block} samples is shorter than the W={W} halo; "
-            "use fewer seq shards or more rows"
-        )
-    if W > R:
-        raise ValueError(
-            f"halo W={W} must fit in one {R}-row block tail; raise rows"
-        )
-    L = stream_len
-    if L <= (n_seq - 1) * block:
-        raise ValueError("stream_len leaves a seq shard with no true samples")
-    if overlap_halo is None:
-        overlap_halo = NT_loc >= 2
-
-    def prime_from_tail(tail_f32, first_index):
-        """(carry, gate, hist) kernel priming from the W samples preceding
-        global position `first_index`; tail_f32: (G_loc, C, W, LANES)."""
-        G_loc = tail_f32.shape[0]
-        B_loc = G_loc * LANES
-        hb = tail_f32.transpose(0, 3, 1, 2).reshape(B_loc, C // 2, 2, W)
-        st = minn_rtl_metric_planar(
-            hb, quarter_len=Q, smooth_shift=smooth_shift,
-            threshold_value=threshold_value,
-            threshold_frac_bits=threshold_frac_bits,
-        )
-        carry_init = st.smooth_metric[..., -1]
-        gi_tail = first_index - h + jnp.arange(h, dtype=jnp.int32)
-        above_tail = st.above_threshold[..., -h:] & (gi_tail >= valid_from)
-        gate_init = _gate_init_from_tail(above_tail, gi_tail)
-        hist_init = tail_f32.transpose(1, 0, 3, 2).reshape(C, B_loc, W)
-        return hist_init, carry_init, gate_init
-
-    def run_kernel(blk_part, n_blocks, base, B_loc, init, *,
-                   stride=None, offset=0):
-        # stride/offset run the kernel on a per-group block SUBRANGE of an
-        # unsliced buffer via the pallas index_map: a `blk[:, 1:]` slice
-        # would materialize a copy of the whole stream buffer before the
-        # kernel (measured 1.77x mesh(1,1) overhead for the overlap split
-        # vs 1.008x serialized -- the kernel runs at the HBM floor, so +2x
-        # traffic halves it)
-        n_groups = blk_part.shape[0]
-        return minn_rtl_detect_fused_tm(
-            blk_part.reshape(n_groups * (stride or n_blocks), CR, LANES),
-            quarter_len=Q, smooth_shift=smooth_shift,
-            threshold_value=threshold_value,
-            threshold_frac_bits=threshold_frac_bits,
-            hysteresis=hysteresis, stream_len=n_blocks * R, batch=B_loc,
-            max_events=max_events, tie=tie,
-            emit_unclosed=True,  # boundary gates must surface for merging
-            rows=R, interpret=interpret,
-            base_index=base, stream_len_global=L,
-            shard_init=init,
-            in_block_stride=stride, in_block_offset=offset,
-        )
-
-    def shard_fn(blk):
-        # blk: (G_loc, NT_loc, C*R, LANES).  Halo = last W time rows per
-        # channel plane of the final local block, one ppermute to the right
-        # neighbor (int16 stays int16 on the wire; converted after).
-        G_loc = blk.shape[0]
-        B_loc = G_loc * LANES
-        sidx = jax.lax.axis_index("seq")
-        tail = blk[:, -1].reshape(G_loc, C, R, LANES)[:, :, R - W :]
-        from_left = jax.lax.ppermute(
-            tail, "seq", [(i, i + 1) for i in range(n_seq - 1)]
-        )
-        halo = jnp.where(sidx > 0, from_left, jnp.zeros_like(from_left))
-        halo = halo.astype(jnp.float32)  # (G_loc, C, W, LANES)
-        shard_start = sidx * block
-
-        if not overlap_halo:
-            table = run_kernel(
-                blk, NT_loc, shard_start, B_loc,
-                prime_from_tail(halo, shard_start),
-            )
-        else:
-            # interior blocks 1..NT_loc-1: primed from the shard's OWN
-            # block-0 tail -- no dependence on the ppermute, so the halo
-            # transfer hides behind this ((NT_loc-1)/NT_loc of the work)
-            tail0 = blk[:, 0].reshape(G_loc, C, R, LANES)[:, :, R - W :]
-            tab_rest = run_kernel(
-                blk, NT_loc - 1, shard_start + R, B_loc,
-                prime_from_tail(tail0.astype(jnp.float32), shard_start + R),
-                stride=NT_loc, offset=1,
-            )
-            # first block: the only consumer of the remote halo
-            tab_0 = run_kernel(
-                blk, 1, shard_start, B_loc,
-                prime_from_tail(halo, shard_start),
-                stride=NT_loc, offset=0,
-            )
-            # stitch the local pair with the seam rule (no collective)
-            stk = lambda a, b: jnp.stack([a, b])  # noqa: E731
-            merged = _merge_stacked_event_tables(
-                (
-                    stk(tab_0.gate_start, tab_rest.gate_start),
-                    stk(tab_0.gate_close, tab_rest.gate_close),
-                    stk(tab_0.peak_idx, tab_rest.peak_idx),
-                    stk(tab_0.peak_value, tab_rest.peak_value),
-                    stk(tab_0.closed, tab_rest.closed),
-                    stk(tab_0.count, tab_rest.count),
-                    stk(tab_0.overflow, tab_rest.overflow),
-                ),
-                h=h, E=max_events, K=1, tie_last=(tie == "last"),
-                emit_unclosed=True,
-            )
-            from ofdm_sync_tpu.ops.detect import GateEvents as _GE
-            table = _GE(
-                valid=merged[0], closed=merged[1], gate_start=merged[2],
-                gate_close=merged[3], peak_idx=merged[4],
-                peak_value=merged[5], count=merged[6], overflow=merged[7],
-            )
-        return _merge_shard_event_tables(
-            table, axis_name="seq", h=h, E=max_events,
-            tie_last=(tie == "last"), emit_unclosed=emit_unclosed,
-        )
-
-    spec_in = P("data", "seq", None, None)
-    rep = P("data")
-    fn = shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(spec_in,),
+        in_specs=(P(None, "data", "seq"),),
         out_specs=(rep,) * 8,
         check_vma=False,
     )
-    valid, closed, gs, gc, pi, pv, count, overflow = fn(x_tiled)
-    table = GateEvents(
-        valid=valid, closed=closed, gate_start=gs, gate_close=gc,
-        peak_idx=pi, peak_value=pv, count=count, overflow=overflow,
-    )
-    if batch is not None and batch < G * LANES:
-        table = jax.tree.map(lambda a: a[:batch], table)
-    return table
+    return GateEvents(*fn(iq))
 
 
 def _merge_shard_event_tables(
@@ -1112,500 +782,10 @@ def _merge_shard_event_tables(
         gf32, gall[..., 3 * E : 4 * E].astype(bool),
         gall[..., 4 * E], gall[..., 4 * E + 1].astype(bool),
     )
-    return _merge_stacked_event_tables(
+    return merge_stacked_event_tables(
         gathered, h=h, E=E, K=K, tie_last=tie_last,
         emit_unclosed=emit_unclosed,
     )
-
-
-def _merge_stacked_event_tables(
-    gathered, *, h: int, E: int, K: int, tie_last: bool, emit_unclosed: bool,
-):
-    """Collective-free core of `_merge_shard_event_tables`: merge event
-    tables stacked on a leading axis, in time order.  `gathered` is
-    (start, close, peak_idx, packed_f32(K*E), closed, count, overflow),
-    each (n_pieces, B, ...).  Also used WITHOUT a collective to stitch a
-    shard's own first-block table onto its interior-blocks table (the
-    halo-overlap split -- the same seam rule applies at the local split)."""
-    i32 = jnp.int32
-    B = gathered[0].shape[1]
-    slot = jnp.arange(E, dtype=i32)[None, :]
-
-    def step(carry, sh):
-        o_start, o_close, o_pidx, o_pval, o_closed, cnt, ovf, trail_la = carry
-        s_start, s_close, s_pidx, s_pval, s_closed, s_cnt, s_ovf = sh
-        has = s_cnt > 0
-        merge = has & (cnt > 0) & (s_start[:, 0] - trail_la <= h)
-
-        # merge the shard's first piece into the trailing output event.
-        # o_pval/s_pval carry K packed f32 fields per slot (peak_value at
-        # field 0 decides `take`; extras follow the same selection).
-        last_slot = jnp.clip(cnt - 1, 0, E - 1)[:, None]
-        sel_last = (slot == last_slot) & merge[:, None]
-        fsel_last = jnp.tile(sel_last, (1, K))
-        cur_pv = jnp.take_along_axis(o_pval, last_slot, 1)[:, 0]
-        cur_pi = jnp.take_along_axis(o_pidx, last_slot, 1)[:, 0]
-        new_pv, new_pi = s_pval[:, 0], s_pidx[:, 0]
-        if tie_last:
-            take = (new_pv > cur_pv) | ((new_pv == cur_pv) & (new_pi > cur_pi))
-        else:
-            take = (new_pv > cur_pv) | ((new_pv == cur_pv) & (new_pi < cur_pi))
-        cur_f = jnp.take_along_axis(
-            o_pval, last_slot + E * jnp.arange(K, dtype=i32)[None, :], 1
-        )  # (B, K): current packed fields of the trailing event
-        new_f = s_pval[
-            :, jnp.arange(K, dtype=i32) * E
-        ]  # (B, K): the piece's slot-0 packed fields
-        mg_f = jnp.where(take[:, None], new_f, cur_f)
-        mg_pi = jnp.where(take, new_pi, cur_pi)
-        o_pval = jnp.where(
-            fsel_last, jnp.repeat(mg_f, E, axis=-1), o_pval
-        )
-        o_pidx = jnp.where(sel_last, mg_pi[:, None], o_pidx)
-        # close: the LATER close wins (a gap-only continuation piece -- a
-        # primed gate with no above samples in this shard -- carries an
-        # earlier/garbage close and must not regress the trailing event)
-        cur_close = jnp.take_along_axis(o_close, last_slot, 1)[:, 0]
-        cur_closed = jnp.take_along_axis(o_closed, last_slot, 1)[:, 0]
-        adv = s_close[:, 0] >= cur_close
-        mg_close = jnp.where(adv, s_close[:, 0], cur_close)
-        mg_closed = jnp.where(adv, s_closed[:, 0], cur_closed)
-        o_close = jnp.where(sel_last, mg_close[:, None], o_close)
-        o_closed = jnp.where(sel_last, mg_closed[:, None], o_closed)
-        # (gate_start keeps the earlier piece's value: the trailing output
-        #  event opened strictly before the seam)
-
-        # append the remaining pieces in order
-        drop = merge.astype(i32)
-        koff = jnp.arange(K, dtype=i32)[None, :] * E  # packed-field offsets
-        for e in range(E):
-            src_ok = (e < s_cnt) & ~(merge & (e == 0))
-            dst = cnt + e - drop
-            sel = src_ok[:, None] & (slot == dst[:, None])
-            fsel = jnp.tile(sel, (1, K))
-            o_start = jnp.where(sel, s_start[:, e : e + 1], o_start)
-            o_close = jnp.where(sel, s_close[:, e : e + 1], o_close)
-            o_pidx = jnp.where(sel, s_pidx[:, e : e + 1], o_pidx)
-            o_pval = jnp.where(
-                fsel,
-                jnp.repeat(jnp.take_along_axis(s_pval, e + koff, 1), E,
-                           axis=-1),
-                o_pval,
-            )
-            o_closed = jnp.where(sel, s_closed[:, e : e + 1], o_closed)
-        total = cnt + jnp.where(has, s_cnt - drop, 0)
-        ovf = ovf | s_ovf | (total > E)
-        cnt = jnp.minimum(total, E)
-        s_last = jnp.clip(s_cnt - 1, 0, E - 1)[:, None]
-        s_trail_close = jnp.take_along_axis(s_close, s_last, 1)[:, 0]
-        trail_la = jnp.where(has, s_trail_close - h, trail_la)
-        return (o_start, o_close, o_pidx, o_pval, o_closed, cnt, ovf,
-                trail_la), None
-
-    z = jnp.zeros((B, E), i32)
-    init = (
-        z, z, z, jnp.zeros((B, K * E), jnp.float32), jnp.zeros((B, E), bool),
-        jnp.zeros((B,), i32), jnp.zeros((B,), bool),
-        jnp.full((B,), jnp.iinfo(jnp.int32).min // 2, i32),
-    )
-    (o_start, o_close, o_pidx, o_pval, o_closed, cnt, ovf, _), _ = (
-        jax.lax.scan(step, init, tuple(gathered))
-    )
-    exists = slot < cnt[:, None]
-    valid = exists & (o_closed | emit_unclosed)
-    z0 = jnp.int32(0)
-    fexists = jnp.tile(exists, (1, K))
-    fvals = jnp.where(fexists, o_pval, jnp.float32(0.0))
-    out = (
-        valid,
-        o_closed & exists,
-        jnp.where(exists, o_start, z0),
-        jnp.where(exists, o_close, z0),
-        jnp.where(exists, o_pidx, z0),
-        fvals[:, :E],
-        jnp.sum(valid.astype(i32), axis=-1),
-        ovf,
-    )
-    extra_out = tuple(fvals[:, k * E : (k + 1) * E] for k in range(1, K))
-    return out + extra_out
-
-
-def sharded_aa_detect_fused(
-    iq: jax.Array,
-    mesh: Mesh,
-    *,
-    half_len: int,
-    threshold: float = 0.15,
-    hysteresis: int = 128,
-    max_events: int = 8,
-    tie: str = "first",
-    emit_unclosed: bool = True,
-    kernel_block: int = 16384,
-    batch_tile: int = 8,
-    channel_leading: bool = False,
-    interpret: bool | None = None,
-):
-    """Production multi-chip [A][A] detection: the FULL single-chip fused
-    AA kernel per seq shard (halo primes its streaming scratch) + a
-    table-level collective event merge with CFO capture at the peak.
-
-    iq: (batch, branches, 2, L) float32, batch over 'data', L over 'seq';
-    with `channel_leading=True`, the framework-native (2*branches, batch, L)
-    layout (rows [b0_i, b0_q, b1_i, b1_q]), avoiding the per-shard HBM
-    layout transpose.
-
-    Same priming design as `sharded_minn_rtl_detect_fused`, but simpler:
-    the AA metric has no smoothing IIR, so the halo is just the 2L
-    delay-line/window reach plus the h-sample tail whose above-bits prime
-    the gate FSM -- one ppermute, a tiny XLA metric pass over the halo,
-    and the per-shard kernel then emits GLOBAL event tables (with
-    (P_re, P_im, M) captured at each peak) that
-    `_merge_shard_event_tables` stitches across seams, extras included.
-
-    Returns (GateEvents, P_at_peak (..., 2, E) planar, M_at_peak (..., E)) --
-    the same contract as `kernels.pallas_aa.aa_detect_fused_pallas` (CFO =
-    angle(P)·fs/(2πL), frame start = peak − 2L + 1, reference
-    sync_aa.py:533-540), with batch over 'data', replicated over 'seq'.
-    """
-    from ofdm_sync_tpu.kernels.pallas_aa import aa_detect_fused_pallas
-    from ofdm_sync_tpu.kernels.streaming import aa_metric_planar
-    from ofdm_sync_tpu.ops.detect import GateEvents
-
-    L = half_len
-    n = iq.shape[-1]
-    n_seq = mesh.shape["seq"]
-    n_data = mesh.shape["data"]
-    batch_dim = iq.shape[1] if channel_leading else iq.shape[0]
-    if n % n_seq or batch_dim % n_data:
-        raise ValueError("batch/stream dims not divisible by mesh axes")
-    block = n // n_seq
-    h = max(int(hysteresis), 1)
-    tie_last = tie == "last"
-    # halo = window + lag reach (2L; the last H = round_up(2L, 128) samples
-    # prime the kernel's history rows) + the h-sample gate tail, whose
-    # above-bits need full 2L-1 tap support themselves
-    from ofdm_sync_tpu.kernels.pallas_common import LANE, round_up
-
-    W = round_up(2 * L, LANE) + h
-    if block < W:
-        raise ValueError(
-            f"seq shard of {block} samples is shorter than the W={W} halo "
-            f"(2L window/lag reach + hysteresis={h} gate tail); use fewer "
-            "seq shards"
-        )
-
-    def shard_fn(blk):
-        # blk: (B_loc, branches, 2, block), or (C, B_loc, block) when
-        # channel-leading
-        sidx = jax.lax.axis_index("seq")
-        halo = _shard_left_halo(blk, W, n_seq)
-
-        # gate priming from the halo's final h samples (XLA metric pass on
-        # the tiny halo; positions >= 2L-1 have full in-halo tap support)
-        if channel_leading:
-            hb = halo.transpose(1, 0, 2)
-            hb = hb.reshape(hb.shape[0], hb.shape[1] // 2, 2, W)
-        else:
-            hb = halo
-        st = aa_metric_planar(hb, L)
-        shard_start = sidx * block
-        gi_tail = shard_start - h + jnp.arange(h, dtype=jnp.int32)
-        M_tail = st.M[..., -h:]
-        above_tail = (M_tail >= jnp.float32(threshold)) & (gi_tail >= L)
-        gate_init = _gate_init_from_tail(above_tail, gi_tail)
-        hist_init = halo
-        if not channel_leading:
-            bsz = hist_init.shape[0]
-            hist_init = hist_init.reshape(bsz, -1, W).transpose(1, 0, 2)
-
-        table, P_pk, M_pk = aa_detect_fused_pallas(
-            blk,
-            half_len=L,
-            threshold=threshold,
-            hysteresis=hysteresis,
-            max_events=max_events,
-            tie=tie,
-            emit_unclosed=True,  # boundary gates must surface for merging
-            block=kernel_block,
-            batch_tile=batch_tile,
-            channel_leading=channel_leading,
-            interpret=interpret,
-            base_index=shard_start,
-            stream_len_global=n,
-            shard_init=(hist_init, gate_init),
-        )
-        return _merge_shard_event_tables(
-            table, axis_name="seq", h=h, E=max_events, tie_last=tie_last,
-            emit_unclosed=emit_unclosed,
-            extras=(P_pk[..., 0, :], P_pk[..., 1, :], M_pk),
-        )
-
-    spec_in = (
-        P(None, "data", "seq") if channel_leading
-        else P("data", None, None, "seq")
-    )
-    rep = P("data")
-    fn = shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(spec_in,),
-        out_specs=(rep,) * 11,
-        check_vma=False,
-    )
-    (valid, closed, gs, gc, pi, pv, count, overflow,
-     pre_pk, pim_pk, m_pk) = fn(iq)
-    table = GateEvents(
-        valid=valid, closed=closed, gate_start=gs, gate_close=gc,
-        peak_idx=pi, peak_value=pv, count=count, overflow=overflow,
-    )
-    P_at_peak = jnp.stack([pre_pk, pim_pk], axis=-2)  # (batch, 2, E)
-    return table, P_at_peak, m_pk
-
-
-def sharded_zc_cfar_detect(
-    corr_mag: jax.Array,
-    mesh: Mesh,
-    *,
-    corr_window: int = 2048,
-    threshold_value: int | None = None,
-    threshold_frac_bits: int = 15,
-    min_corr_mag: float = 0.3,
-    hysteresis: int = 256,
-    max_events: int = 16,
-    tie: str = "first",
-    emit_unclosed: bool = True,
-    kernel_block: int = 16384,
-):
-    """Sharded ZC CFAR detection over matched-filter magnitudes.
-
-    corr_mag: (batch, L) float32, batch over 'data', L over 'seq'.  The CFAR
-    test (reference zc_v2.py:119-158, 288-336) thresholds each magnitude
-    against its trailing W-window running average; each shard runs the FULL
-    fused CFAR/event kernel primed from a (W + h)-sample magnitude halo
-    (same design as `sharded_minn_rtl_detect_fused`), then the per-shard
-    tables merge at table level.  Returns GateEvents equal to
-    `kernels.pallas_zc.zc_cfar_detect_pallas` on the unsharded stream
-    (tests assert equality up to float association of the window sum).
-    """
-    from ofdm_sync_tpu.kernels.pallas_zc import zc_cfar_detect_pallas
-    from ofdm_sync_tpu.ops.detect import GateEvents
-
-    W = corr_window
-    if threshold_value is None:
-        # the reference's 4x-local-mean CFAR threshold, derived from W (the
-        # compare is against the local SUM, so the value scales with 1/W)
-        threshold_value = int(4.0 * (1 << threshold_frac_bits) / W)
-    n = corr_mag.shape[-1]
-    n_seq = mesh.shape["seq"]
-    n_data = mesh.shape["data"]
-    if n % n_seq or corr_mag.shape[0] % n_data:
-        raise ValueError("batch/stream dims not divisible by mesh axes")
-    block = n // n_seq
-    h = max(int(hysteresis), 1)
-    tie_last = tie == "last"
-    from ofdm_sync_tpu.kernels.pallas_common import LANE, round_up
-
-    Wh = round_up(W, LANE) + h  # window reach (kernel hist width) + tail
-    if block < Wh:
-        raise ValueError(
-            f"seq shard of {block} samples is shorter than the W+h={Wh} "
-            "halo; use fewer seq shards"
-        )
-
-    def shard_fn(blk):
-        # blk: (B_loc, block) magnitudes
-        sidx = jax.lax.axis_index("seq")
-        halo = _shard_left_halo(blk, Wh, n_seq)
-
-        # gate priming from the halo's final h samples (positions >= W-1
-        # of the halo have full window support)
-        cs = jnp.cumsum(halo, axis=-1)
-        local_sum = cs - jnp.concatenate(
-            [jnp.zeros_like(cs[..., :W]), cs[..., :-W]], axis=-1
-        )
-        shard_start = sidx * block
-        gi_tail = shard_start - h + jnp.arange(h, dtype=jnp.int32)
-        above_tail = (
-            (halo[..., -h:] * jnp.float32(1 << threshold_frac_bits)
-             >= local_sum[..., -h:] * jnp.float32(threshold_value))
-            & (halo[..., -h:] >= jnp.float32(min_corr_mag))
-            & (gi_tail >= W)
-        )
-        gate_init = _gate_init_from_tail(above_tail, gi_tail)
-
-        table = zc_cfar_detect_pallas(
-            blk,
-            corr_window=W,
-            threshold_value=threshold_value,
-            threshold_frac_bits=threshold_frac_bits,
-            min_corr_mag=min_corr_mag,
-            hysteresis=hysteresis,
-            max_events=max_events,
-            tie=tie,
-            emit_unclosed=True,  # boundary gates must surface for merging
-            block=kernel_block,
-            base_index=shard_start,
-            stream_len_global=n,
-            shard_init=(halo, gate_init),
-        )
-        return _merge_shard_event_tables(
-            table, axis_name="seq", h=h, E=max_events, tie_last=tie_last,
-            emit_unclosed=emit_unclosed,
-        )
-
-    rep = P("data")
-    fn = shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P("data", "seq"),),
-        out_specs=(rep,) * 8,
-        check_vma=False,
-    )
-    valid, closed, gs, gc, pi, pv, count, overflow = fn(corr_mag)
-    return GateEvents(
-        valid=valid, closed=closed, gate_start=gs, gate_close=gc,
-        peak_idx=pi, peak_value=pv, count=count, overflow=overflow,
-    )
-
-
-def sharded_zc_iq_detect_tm(
-    mf_tiled: jax.Array,
-    iq_tiled: jax.Array,
-    mesh: Mesh,
-    *,
-    ref_len: int,
-    ref_norm: float,
-    stream_len: int,
-    channels: int = 4,
-    rows: int = 8192,
-    batch: int | None = None,
-    corr_window: int = 2048,
-    threshold_value: int | None = None,
-    threshold_frac_bits: int = 15,
-    min_corr_mag: float = 0.3,
-    hysteresis: int = 256,
-    max_events: int = 16,
-    tie: str = "first",
-    emit_unclosed: bool = True,
-    interpret: bool | None = None,
-):
-    """Multi-chip from-IQ ZC CFAR detection on the TIME-MAJOR kernel
-    (`pallas_zc_tm.zc_iq_cfar_detect_tm`): per seq shard, one left-halo
-    ppermute per buffer primes the kernel, the kernel pushes the halo
-    through its own datapath (bit-identical seams -- see the kernel's
-    shard-init contract), and the per-shard global tables stitch with the
-    single-all_gather table merge (`_merge_shard_event_tables`) -- the
-    same design as `sharded_minn_rtl_detect_fused_tm`, replacing the
-    per-sample merge of `sharded_zc_detect`.
-
-    mf_tiled / iq_tiled: the two tiled stream buffers reshaped to
-    (G, NT, C*rows, 128) -- i.e. `to_time_tiled(x, rows)[0].reshape(...)`.
-    mf float32; iq float32 or int16 (int16 halos stay int16 on the wire).
-    Groups of 128 streams shard over 'data', time blocks over 'seq';
-    `stream_len` is the true correlation length Lc (padding rows only in
-    the final seq shard).  Returns GateEvents with (G*128, E) tables
-    (sliced to `batch`), equal to the unsharded TM kernel.
-
-    Reference parity: zc_v2.py:244-336 (semantics unchanged).
-    """
-    from ofdm_sync_tpu.kernels.pallas_zc_tm import (
-        LANES, zc_iq_cfar_detect_tm, zc_tm_halo_rows,
-    )
-    from ofdm_sync_tpu.ops.detect import GateEvents
-
-    C = channels
-    R = rows
-    if mf_tiled.shape != iq_tiled.shape:
-        raise ValueError(
-            f"mf/iq tiled buffers must share a shape; got {mf_tiled.shape} "
-            f"vs {iq_tiled.shape}"
-        )
-    G, NT, CR, lanes = mf_tiled.shape
-    if CR != C * R or lanes != LANES:
-        raise ValueError(
-            f"buffers must be (G, NT, {C}*{R}, {LANES}); got {mf_tiled.shape}"
-        )
-    W = corr_window
-    if threshold_value is None:
-        threshold_value = int(4.0 * (1 << threshold_frac_bits) / W)
-    n_seq = mesh.shape["seq"]
-    n_data = mesh.shape["data"]
-    if NT % n_seq or G % n_data:
-        raise ValueError("G/NT not divisible by mesh (data, seq) axes")
-    NT_loc = NT // n_seq
-    block = NT_loc * R
-    h = max(int(hysteresis), 1)
-    Wh = zc_tm_halo_rows(ref_len, W, hysteresis)
-    if block < Wh:
-        raise ValueError(
-            f"seq shard of {block} samples is shorter than the Wh={Wh} "
-            "halo; use fewer seq shards or more rows"
-        )
-    if Wh > R:
-        raise ValueError(
-            f"halo Wh={Wh} must fit in one {R}-row block tail; raise rows"
-        )
-    L = stream_len
-    if L <= (n_seq - 1) * block:
-        raise ValueError("stream_len leaves a seq shard with no true samples")
-
-    def shard_fn(mf_blk, iq_blk):
-        # blk: (G_loc, NT_loc, C*R, LANES).  Halo = last Wh time rows per
-        # channel plane of the final local block of EACH buffer, one
-        # ppermute each to the right neighbor (iq int16 stays int16).
-        G_loc = mf_blk.shape[0]
-        B_loc = G_loc * LANES
-        sidx = jax.lax.axis_index("seq")
-
-        def left_halo(blk):
-            tail = blk[:, -1].reshape(G_loc, C, R, LANES)[:, :, R - Wh :]
-            from_left = jax.lax.ppermute(
-                tail, "seq", [(i, i + 1) for i in range(n_seq - 1)]
-            )
-            halo = jnp.where(sidx > 0, from_left, jnp.zeros_like(from_left))
-            # (G_loc, C, Wh, LANES) -> kernel contract (C, B_loc, Wh)
-            return halo.transpose(1, 0, 3, 2).reshape(C, B_loc, Wh)
-
-        mf_halo = left_halo(mf_blk)
-        iq_halo = left_halo(iq_blk)
-        shard_start = sidx * block
-
-        table = zc_iq_cfar_detect_tm(
-            mf_blk.reshape(G_loc * NT_loc, CR, LANES),
-            iq_blk.reshape(G_loc * NT_loc, CR, LANES),
-            ref_len=ref_len, ref_norm=ref_norm,
-            stream_len=block, batch=B_loc,
-            corr_window=W, threshold_value=threshold_value,
-            threshold_frac_bits=threshold_frac_bits,
-            min_corr_mag=min_corr_mag, hysteresis=hysteresis,
-            max_events=max_events, tie=tie,
-            emit_unclosed=True,  # boundary gates must surface for merging
-            rows=R, interpret=interpret,
-            base_index=shard_start, stream_len_global=L,
-            shard_init=(mf_halo, iq_halo),
-        )
-        return _merge_shard_event_tables(
-            table, axis_name="seq", h=h, E=max_events,
-            tie_last=(tie == "last"), emit_unclosed=emit_unclosed,
-        )
-
-    spec_in = P("data", "seq", None, None)
-    rep = P("data")
-    fn = shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(spec_in, spec_in),
-        out_specs=(rep,) * 8,
-        check_vma=False,
-    )
-    valid, closed, gs, gc, pi, pv, count, overflow = fn(mf_tiled, iq_tiled)
-    table = GateEvents(
-        valid=valid, closed=closed, gate_start=gs, gate_close=gc,
-        peak_idx=pi, peak_value=pv, count=count, overflow=overflow,
-    )
-    if batch is not None and batch < G * LANES:
-        table = jax.tree.map(lambda a: a[:batch], table)
-    return table
 
 
 def sharded_zc_detect(
@@ -1621,7 +801,6 @@ def sharded_zc_detect(
     max_events: int = 16,
     tie: str = "first",
     emit_unclosed: bool = True,
-    mf_mode: str = "auto",
 ):
     """End-to-end sharded ZC streaming detection from complex IQ.
 
@@ -1630,23 +809,17 @@ def sharded_zc_detect(
     zc_v2.py:244-271, 486-498) over a (W + R - 1)-sample halo, then the
     CFAR threshold and collective event merge.  Events cover correlation
     outputs k in [0, L) -- the 'full'-convolution tail beyond the stream
-    end is dropped -- and equal `kernels.pallas_zc.zc_cfar_detect_pallas`
+    end is dropped -- and equal `models.detectors.ZCStreamingDetector.detect`
     on the unsharded magnitudes truncated to L (up to FFT float
     association; tests use clear peaks).
 
-    mf_mode selects the per-shard matched-filter backend: 'xla' = FFT
-    convolution (monolithic below 2^16 samples, overlap-save above),
-    'mxu' = the Pallas matmul-DFT kernel (`kernels.pallas_mf`, ~2x the
-    OLS FFT rate on v5e, same-window; interpret-mode on CPU meshes), 'auto' = mxu on
-    TPU for long shards with a fitting template, else xla.
+    The per-shard matched filter is an FFT convolution (cuFFT on a GPU):
+    monolithic below 2^16 samples, overlap-save above.
     """
     from ofdm_sync_tpu.ops.channel import (
         fft_convolve_full, fft_convolve_full_ols,
     )
     from ofdm_sync_tpu.ops.detect import GateEvents
-    from ofdm_sync_tpu.kernels.pallas_mf import (
-        MAX_TAPS, matched_filter_mxu,
-    )
 
     ref = jnp.asarray(reference)
     R = ref.shape[-1]
@@ -1670,33 +843,14 @@ def sharded_zc_detect(
     h = max(int(hysteresis), 1)
     eps = jnp.float32(1e-12)
 
-    if mf_mode == "auto":
-        on_tpu = jax.devices()[0].platform == "tpu"
-        mf_mode = (
-            "mxu"
-            if (on_tpu and kern.ndim == 1 and R <= MAX_TAPS
-                and block + halo >= 1 << 15)
-            else "xla"
-        )
-
     def shard_fn(blk):
         # blk: (B_loc, BR, block) complex
         ext = halo_exchange(blk, halo, 0, "seq")
         # matched filter ('full' conv index k uses x[k-R+1 .. k]); slice so
         # lane i corresponds to windows ending at ext index R-1+i, i.e.
         # global correlation outputs [s*block - W, s*block + block).
-        # Long shards use the MXU matmul-DFT kernel (kernels.pallas_mf,
-        # ~2x the OLS FFT rate, same-window) or overlap-save batched small FFTs
-        # (1.37x the monolithic transform -- tools/perf_probe13.py).
-        if mf_mode == "mxu":
-            B_loc, BR_l, ext_len = ext.shape
-            xp = jnp.stack(
-                [jnp.real(ext).astype(jnp.float32),
-                 jnp.imag(ext).astype(jnp.float32)], axis=0
-            ).reshape(2, B_loc * BR_l, ext_len)
-            y = matched_filter_mxu(xp, kern)
-            conv = (y[0] + 1j * y[1]).reshape(B_loc, BR_l, -1)
-        elif ext.shape[-1] >= 1 << 16 and kern.ndim == 1:
+        # long shards: overlap-save batched FFTs
+        if ext.shape[-1] >= 1 << 16 and kern.ndim == 1:
             conv = fft_convolve_full_ols(ext, kern)
         else:
             conv = fft_convolve_full(ext, kern)
@@ -1877,107 +1031,8 @@ def sharded_extract_frames(
     return fn(iq, table.valid, table.count, table.peak_idx)
 
 
-def sharded_extract_frames_tm(
-    x_tiled: jax.Array,
-    table,
-    mesh: Mesh,
-    *,
-    frame_len: int,
-    stream_len: int,
-    channels: int = 4,
-    rows: int = 8192,
-    batch: int | None = None,
-    timing_offset: int = 0,
-    max_frames: int = 4,
-):
-    """Frame re-emission from the TIME-MAJOR tiled stream buffer (the
-    flagship sharded layout of `sharded_minn_rtl_detect_fused_tm`).
-
-    x_tiled: (G, NT, C*rows, 128) float32 or int16, groups over 'data',
-    time blocks over 'seq'; table: the merged GateEvents from the TM
-    sharded detect ((G*128, E) fields, batch over 'data').  Each shard
-    re-lays ONLY its local block to channel-leading (a local transpose --
-    emission is not the hot loop) and contributes its window overlaps; one
-    psum over 'seq' assembles the windows.  Returns (frames, starts,
-    valid) with frames ``(G*128, max_frames, C, frame_len)`` float32
-    (sliced to `batch` when given), equal to extracting from the
-    unsharded stream.
-    """
-    from ofdm_sync_tpu.kernels.pallas_tm_common import LANES
-    from ofdm_sync_tpu.ops.detect import GateEvents
-
-    C = channels
-    R = rows
-    G, NT, CR, lanes = x_tiled.shape
-    if CR != C * R or lanes != LANES:
-        raise ValueError(
-            f"x_tiled must be (G, NT, {C}*{R}, {LANES}); got {x_tiled.shape}"
-        )
-    n_seq = mesh.shape["seq"]
-    n_data = mesh.shape["data"]
-    if NT % n_seq or G % n_data:
-        raise ValueError("G/NT not divisible by mesh (data, seq) axes")
-    NT_loc = NT // n_seq
-    block = NT_loc * R
-    L = stream_len
-
-    def shard_fn(blk, valid_t, count_t, peak_t):
-        # blk: (G_loc, NT_loc, C*R, LANES) -> channel-leading
-        # (C, G_loc*LANES, block), padding rows past L stay (they are
-        # zeros by the tiled-buffer contract and windows are clipped to L)
-        G_loc = blk.shape[0]
-        cl = (
-            blk.astype(jnp.float32)
-            .reshape(G_loc, NT_loc, C, R, LANES)
-            .transpose(2, 0, 4, 1, 3)
-            .reshape(C, G_loc * LANES, block)
-        )
-        sidx = jax.lax.axis_index("seq")
-        tb = GateEvents(
-            valid=valid_t, closed=valid_t, gate_start=peak_t,
-            gate_close=peak_t, peak_idx=peak_t,
-            peak_value=jnp.zeros_like(peak_t, jnp.float32),
-            count=count_t, overflow=jnp.zeros_like(count_t, bool),
-        )
-        frames, starts, valid = _extract_local_frames(
-            cl, tb, shard_start=sidx * block, stream_len=L,
-            frame_len=frame_len, timing_offset=timing_offset,
-            max_frames=max_frames,
-        )
-        frames = jax.lax.psum(frames, "seq")
-        return frames, starts, valid
-
-    rep = P("data")
-    fn = shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P("data", "seq", None, None), rep, rep, rep),
-        out_specs=(rep, rep, rep),
-        check_vma=False,
-    )
-    # the sharded TM detect slices its table to `batch`; pad back to the
-    # full lane width (padding lanes have no valid events)
-    tv, tc, tp = table.valid, table.count, table.peak_idx
-    full = G * LANES
-    if tv.shape[0] < full:
-        pad_n = full - tv.shape[0]
-        tv = jnp.concatenate(
-            [tv, jnp.zeros((pad_n,) + tv.shape[1:], tv.dtype)]
-        )
-        tc = jnp.concatenate([tc, jnp.zeros((pad_n,), tc.dtype)])
-        tp = jnp.concatenate(
-            [tp, jnp.zeros((pad_n,) + tp.shape[1:], tp.dtype)]
-        )
-    frames, starts, valid = fn(x_tiled, tv, tc, tp)
-    if batch is not None and batch < full:
-        frames, starts, valid = (
-            frames[:batch], starts[:batch], valid[:batch]
-        )
-    return frames, starts, valid
-
-
-def sharded_minn_rtl_receive_tm(
-    x_tiled: jax.Array,
+def sharded_minn_rtl_receive(
+    iq: jax.Array,
     mesh: Mesh,
     *,
     quarter_len: int,
@@ -1985,49 +1040,41 @@ def sharded_minn_rtl_receive_tm(
     threshold_value: int,
     threshold_frac_bits: int,
     hysteresis: int,
-    stream_len: int,
     frame_len: int,
-    rows: int = 8192,
-    channels: int = 4,
-    batch: int | None = None,
     max_events: int = 8,
     timing_offset: int = 0,
     max_frames: int = 4,
-    overlap_halo: bool | None = None,
-    interpret: bool | None = None,
+    interpret: bool = False,
 ):
-    """The FULL flagship receive chain, multi-chip: sharded time-major
-    fused detection (`sharded_minn_rtl_detect_fused_tm`, the shipping
-    halo-overlap schedule) + sharded device-side aligned frame re-emission
-    (`sharded_extract_frames_tm`) -- detect AND re-emit without ever
-    materializing the stream on one chip.  Frame windows open at
-    ``peak_idx + timing_offset`` and may span seq-shard seams (each shard
-    contributes its samples; one psum assembles the window).
+    """The Minn-RTL receive chain's front half over a mesh: sharded fused
+    detection (`sharded_minn_rtl_detect_fused`) + sharded device-side
+    aligned frame re-emission (`sharded_extract_frames`) -- detect AND
+    re-emit without ever materializing the stream on one device.  Frame
+    windows open at ``peak_idx + timing_offset`` and may span seq-shard
+    seams (each shard contributes its samples; one psum assembles the
+    window).
 
-    The single-chip counterpart is
-    `models.detectors.MinnRTLDetector.detect_fused_frames`, which opens
-    windows at ``peak + params.timing_offset - 6*quarter_len`` (the RTL
-    peak sits at s0 + 6Q -- reference minn_rtl.py:93-103, 943-953; output
-    contract ref/minn_preamble_detector.sv:103-180, 445-530); pass that
-    same value as `timing_offset` here.
+    The single-device counterpart is
+    `models.detectors.MinnRTLDetector.detect_frames`, which opens windows
+    at ``peak + params.timing_offset - 6*quarter_len`` (the RTL peak sits
+    at s0 + 6Q -- reference minn_rtl.py:93-103, 943-953; output contract
+    ref/minn_preamble_detector.sv:103-180, 445-530); pass that same value
+    as `timing_offset` here.
 
     Returns ``(table, frames, starts, valid)`` -- the merged GateEvents
     plus frames ``(batch, max_frames, C, frame_len)`` float32, equal to
     the unsharded chain (tests assert).
     """
-    table = sharded_minn_rtl_detect_fused_tm(
-        x_tiled, mesh,
+    table = sharded_minn_rtl_detect_fused(
+        iq, mesh,
         quarter_len=quarter_len, smooth_shift=smooth_shift,
         threshold_value=threshold_value,
         threshold_frac_bits=threshold_frac_bits,
-        hysteresis=hysteresis, stream_len=stream_len, rows=rows,
-        channels=channels, batch=batch, max_events=max_events,
-        overlap_halo=overlap_halo, interpret=interpret,
+        hysteresis=hysteresis, max_events=max_events, interpret=interpret,
     )
-    frames, starts, valid = sharded_extract_frames_tm(
-        x_tiled, table, mesh,
-        frame_len=frame_len, stream_len=stream_len, channels=channels,
-        rows=rows, batch=batch, timing_offset=timing_offset,
+    frames, starts, valid = sharded_extract_frames(
+        iq.astype(jnp.float32), table, mesh,
+        frame_len=frame_len, timing_offset=timing_offset,
         max_frames=max_frames,
     )
     return table, frames, starts, valid
@@ -2075,14 +1122,8 @@ sharded_sc_metric = _jit_entrypoint(sharded_sc_metric, ("mesh", "n_fft"))
 sharded_minn_rtl_planar = _jit_entrypoint(sharded_minn_rtl_planar)
 sharded_minn_rtl_detect = _jit_entrypoint(sharded_minn_rtl_detect)
 sharded_minn_rtl_detect_fused = _jit_entrypoint(sharded_minn_rtl_detect_fused)
-sharded_minn_rtl_detect_fused_tm = _jit_entrypoint(
-    sharded_minn_rtl_detect_fused_tm)
-sharded_aa_detect_fused = _jit_entrypoint(sharded_aa_detect_fused)
-sharded_zc_cfar_detect = _jit_entrypoint(sharded_zc_cfar_detect)
-sharded_zc_iq_detect_tm = _jit_entrypoint(sharded_zc_iq_detect_tm)
 sharded_zc_detect = _jit_entrypoint(sharded_zc_detect)
 sharded_extract_frames = _jit_entrypoint(sharded_extract_frames)
-sharded_extract_frames_tm = _jit_entrypoint(sharded_extract_frames_tm)
-# receive_tm composes the two jitted stages above; jit the composition too
-# so the full chain is one cached dispatch
-sharded_minn_rtl_receive_tm = _jit_entrypoint(sharded_minn_rtl_receive_tm)
+# the receive chain composes two jitted stages; jit the composition too so
+# the full chain is one cached dispatch
+sharded_minn_rtl_receive = _jit_entrypoint(sharded_minn_rtl_receive)

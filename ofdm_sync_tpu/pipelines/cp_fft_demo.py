@@ -7,7 +7,7 @@ symbol's CP: phase ramp + ISI).  The sample timing offset is recovered from
 the slope of the unwrapped inter-window phase ratio:
 ``STO = -slope * N / (2*pi)`` (reference ofdm_cp_fft_demo.py:95-105).
 
-TPU-native differences from the reference: all FFT windows are gathered and
+Differences from the reference: all FFT windows are gathered and
 transformed in ONE batched on-device FFT; the linear fit is a closed-form
 least-squares (no polyfit); plots are written headlessly as PNG artifacts
 instead of ``plt.show()``.

@@ -3,7 +3,7 @@
 The reference's observability is print blocks with '='*70 banners and a
 consistent PNG artifact set per sim (reference sc.py:229-347,
 minn.py:390-632; artifact list in SURVEY section 5).  This module reproduces
-that artifact vocabulary for the TPU pipelines, with matplotlib forced to a
+that artifact vocabulary for the pipelines, with matplotlib imported lazily on a
 headless backend.
 """
 
@@ -13,10 +13,16 @@ from pathlib import Path
 
 import numpy as np
 
-import matplotlib
 
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
+def _pyplot():
+    """matplotlib on the headless backend, imported only where a plot is
+    drawn (the detection paths never need it)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
 
 
 BANNER = "=" * 70
@@ -31,6 +37,7 @@ def banner(title: str) -> None:
 def plot_time_series(samples, title: str, path: Path) -> None:
     """Re/Im/|x| views of a 1-D or (branches, L) waveform
     (artifact parity with reference core.py:60-110)."""
+    plt = _pyplot()
     samples = np.asarray(samples)
     if samples.ndim == 1:
         fig, axes = plt.subplots(3, 1, figsize=(10, 6), sharex=True)
@@ -62,6 +69,7 @@ def plot_time_series(samples, title: str, path: Path) -> None:
 
 
 def plot_constellation(x, ref, path: Path, title: str) -> None:
+    plt = _pyplot()
     x = np.asarray(x)
     fig, ax = plt.subplots(figsize=(5, 5))
     ax.scatter(x.real, x.imag, s=6, alpha=0.6, label="Equalized")
@@ -81,6 +89,7 @@ def plot_constellation(x, ref, path: Path, title: str) -> None:
 
 def plot_phase_slope(h_used, path: Path, title: str, n_fft: int, num_active: int):
     """Unwrapped-phase diagnostic; returns (slope rad/bin, sto samples)."""
+    plt = _pyplot()
     from ofdm_sync_tpu.ops.estimate import estimate_timing_offset_from_phase_slope
     from ofdm_sync_tpu.ops.waveforms import centered_subcarrier_indices
 
@@ -115,6 +124,7 @@ def plot_metric(
     ylabel: str = "M(d)",
 ) -> None:
     """Generic metric plot with marker vlines (x, color, style, label)."""
+    plt = _pyplot()
     fig = plt.figure(figsize=(10, 4))
     plt.plot(np.asarray(M), label=ylabel)
     for trace, label, style in extra_traces:
@@ -144,6 +154,7 @@ def plot_rx_and_metric(
 ) -> None:
     """Two-panel |rx| + metric detection overview (the `start_detection.png`
     artifact shape shared by every reference sim)."""
+    plt = _pyplot()
     rx = np.asarray(rx)
     if rx.ndim == 1:
         rx = rx[None, :]
@@ -184,6 +195,7 @@ def plot_ls_cir(
     title: str,
 ) -> None:
     """LS-derived CIR vs measured CIR (reference minn.py:222-285)."""
+    plt = _pyplot()
     ls_cir = np.asarray(ls_cir)
     mag = np.abs(ls_cir)
     ls_peak = int(np.argmax(mag))

@@ -68,8 +68,8 @@ def test_throughput_meter():
 
 
 def test_fused_rx_pipeline():
-    """Production receive chain: fused-kernel detection + CFO + EQ + EVM
-    lands within physical expectations (SNR 10 dB, 2 antennas)."""
+    """Receive chain: detection + CFO + EQ + EVM lands within physical
+    expectations (SNR 10 dB, 2 antennas)."""
     from ofdm_sync_tpu.pipelines.fused_rx import run_fused_rx
 
     r = run_fused_rx()
@@ -101,9 +101,8 @@ def test_fused_rx_cli():
 
 
 def test_fused_rx_minn_rtl_two_frames():
-    """FLAGSHIP receive chain (VERDICT r3 item 7): the Minn-RTL 30.72 MHz
-    family end-to-end on the time-major fused kernel -- two-frame stimulus
-    (reference minn_rtl.py:884-889), TM detect, device-side frame
+    """FLAGSHIP receive chain: the Minn-RTL 30.72 MHz family end-to-end --
+    two-frame stimulus (reference minn_rtl.py:884-889), detect, device-side frame
     re-emission (ref/minn_preamble_detector.sv:445-530 output contract),
     CP-CFO + LS EQ + EVM per frame."""
     from ofdm_sync_tpu.pipelines.fused_rx import run_fused_rx_minn_rtl

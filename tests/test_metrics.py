@@ -215,7 +215,7 @@ def test_zc_freq_metric_peak(rng):
 
 
 def test_zc_freq_metric_sliding_matches_fft(rng):
-    """The TPU-native sliding-DFT form == the chunked-FFT form (values, not
+    """The sliding-DFT form == the chunked-FFT form (values, not
     just the peak)."""
     from ofdm_sync_tpu.ops.waveforms import (
         build_pss_symbol,

@@ -76,8 +76,7 @@ def _worker(rank: int, port: int) -> None:
 
     fn = jax.jit(
         lambda v: sharded_minn_rtl_detect_fused(
-            v, mesh, **KW, kernel_block=2048, channel_leading=True,
-            interpret=True,
+            v, mesh, **KW, interpret=True,
         ),
         out_shardings=None,
     )

@@ -1,4 +1,4 @@
-"""Native C++ integer detector vs the NumPy golden model and the TPU path.
+"""Native C++ integer detector vs the NumPy golden model and the fused kernel.
 
 Mirrors the reference's verification triangle (ref/test_minn_preamble_detector
 .py): RTL (here: the C++ bit-accurate model) vs vectorized golden model vs
@@ -13,7 +13,7 @@ from ofdm_sync_tpu.conformance.golden import (
     golden_gate_events,
     golden_minn_rtl_metric,
 )
-from ofdm_sync_tpu.kernels.pallas_minn import minn_rtl_detect_fused_pallas
+from ofdm_sync_tpu.kernels.minn_rtl_triton import minn_rtl_detect_triton
 from ofdm_sync_tpu.kernels.streaming import to_planar
 from ofdm_sync_tpu.native import minn_rtl_detect_native
 from ofdm_sync_tpu.ops.channel import quantize_int
@@ -83,8 +83,8 @@ def test_native_fsm_matches_golden_fsm(rng):
         assert bool(det.closed[k]) == closed
 
 
-def test_native_vs_tpu_kernel_frame_start(rng):
-    """Native int12 detector and the float Pallas kernel agree on the frame
+def test_native_vs_kernel_frame_start(rng):
+    """Native int12 detector and the float fused kernel agree on the frame
     start within the reference's +-16-sample RTL tolerance
     (ref/test_minn_preamble_detector.py:446-451)."""
     iq_int = _stimulus(rng, snr_db=10.0)
@@ -92,14 +92,14 @@ def test_native_vs_tpu_kernel_frame_start(rng):
     assert det.count >= 1
 
     x = (iq_int[:, 0, :] + 1j * iq_int[:, 1, :]).astype(complex)
-    iq_f = to_planar(jnp.asarray(x))
-    table = minn_rtl_detect_fused_pallas(
-        iq_f, quarter_len=Q, **KW, hysteresis=2, block=512
+    iq_f = to_planar(jnp.asarray(x)).reshape(4, -1)[:, None]
+    table = minn_rtl_detect_triton(
+        iq_f, quarter_len=Q, **KW, hysteresis=2, interpret=True
     )
-    assert int(table.count) >= 1
+    assert int(table.count[0]) >= 1
     native_peak = int(det.peak_idx[0])
-    tpu_peak = int(np.asarray(table.peak_idx)[0])
-    assert abs(native_peak - tpu_peak) <= 16
+    kernel_peak = int(np.asarray(table.peak_idx)[0, 0])
+    assert abs(native_peak - kernel_peak) <= 16
     # expected peak: 1Q after preamble end (reference minn_rtl.py:60-106)
     expected = 900 + 5 * Q + Q - 1
     assert abs(native_peak - expected) <= 16

@@ -193,20 +193,3 @@ def test_aa_batched_grid_matches_detection_profile():
     # CFO capture range is +-15 kHz; single-trial error at SNR>=0 stays within
     # a few hundred Hz (estimator phase-noise std is tens of Hz at these SNRs)
     assert np.all(np.abs(out["cfo_error"][1:]) < 250.0)
-
-
-def test_aa_grid_fused_matches_batched():
-    """The one-kernel-launch fused grid sweep reproduces the vmapped XLA
-    grid exactly (same noise keys, same quantization math)."""
-    import numpy as np
-    from ofdm_sync_tpu.pipelines.aa import (
-        run_grid_test_batched,
-        run_grid_test_fused,
-    )
-
-    kw = dict(snr_values=(0.0, 10.0), full_scale_ratios=(1.0, 2.0))
-    a = run_grid_test_batched(**kw)
-    b = run_grid_test_fused(**kw)
-    for k in ("detected", "frame_start", "num_events", "timing_error"):
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    np.testing.assert_allclose(a["cfo_error"], b["cfo_error"], atol=1e-3)

@@ -3,7 +3,7 @@
 Reproduces the reference's only automated test
 (reference ref/test_minn_preamble_detector.py): hermitian [A A -A -A]
 preamble + QPSK symbol + guards, AWGN at 10 dB, int12 quantization, two
-antennas -- then asserts our jitted TPU detector flags the frame within the
+antennas -- then asserts our jitted detector flags the frame within the
 reference's +-16 sample tolerance of the sequential float64 golden FSM.
 The RTL simulator is replaced by our vectorized detector; the golden model
 here plays the role the NumPy golden played against Verilator.
@@ -93,7 +93,7 @@ def test_detector_flags_within_tolerance(stimulus):
         ),
     )
     _, result = det.detect(jnp.asarray(rx, jnp.complex64))
-    assert result.events, "TPU detector did not trigger"
+    assert result.events, "detector did not trigger"
     observed = result.events[0].peak_index
     assert abs(observed - golden_idx) <= TOLERANCE, (
         f"observed {observed} vs golden {golden_idx}"

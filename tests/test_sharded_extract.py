@@ -3,7 +3,7 @@
 Windows placed ON seq-shard seams must assemble exactly from per-shard
 contributions (each shard contributes only the samples it holds; one psum
 over 'seq' -- no stream all_gather).  Covers the channel-leading layout,
-the time-major tiled layout, and an end-to-end TM detect -> extract round.
+int16 input, and the end-to-end sharded receive chain.
 """
 
 import numpy as np
@@ -16,7 +16,6 @@ from ofdm_sync_tpu.ops.extract import extract_frames_batched
 from ofdm_sync_tpu.parallel.shard import (
     make_stream_mesh,
     sharded_extract_frames,
-    sharded_extract_frames_tm,
 )
 
 C = 4
@@ -75,33 +74,20 @@ def test_sharded_extract_matches_unsharded(rng, n_data, n_seq):
     np.testing.assert_array_equal(np.asarray(frames_s), np.asarray(frames_u))
 
 
-def test_sharded_extract_tm_matches_unsharded(rng):
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    from ofdm_sync_tpu.kernels.pallas_tm_common import to_time_tiled
-
-    n_seq = 4
+@pytest.mark.parametrize("n_seq", [2, 4])
+def test_sharded_extract_int16_matches_unsharded(rng, n_seq):
+    """ADC-width int16 streams: windows on the seams, batch over one
+    device group, equal to the unsharded extraction."""
     mesh = make_stream_mesh(1, n_seq, devices=jax.devices()[:n_seq])
-    R = 512
-    NT = 8
-    Ltm = NT * R
-    blk = Ltm // n_seq
-    batch = 128  # one lane group
+    batch = 2
+    blk = L // n_seq
     F = 600
-    x = rng.standard_normal((C, batch, Ltm)).astype(np.float32)
-    events = [[] for _ in range(batch)]
-    events[0] = [blk - 5, 3 * blk - F // 3]
-    events[5] = [0]
-    events[127] = [Ltm - 1, blk]
-    tb = _table(batch, events)
-    xt, G, NTx = to_time_tiled(jnp.asarray(x), R)
-    assert (G, NTx) == (1, NT)
-    frames_s, starts_s, valid_s = jax.jit(
-        lambda v, t: sharded_extract_frames_tm(
-            v, t, mesh, frame_len=F, stream_len=Ltm, channels=C, rows=R,
-            batch=batch, timing_offset=-7, max_frames=4,
-        )
-    )(xt.reshape(G, NT, C * R, 128), tb)
+    x = np.round(100 * rng.standard_normal((C, batch, L))).astype(np.int16)
+    tb = _table(batch, [[blk - 5, L - 1], [0, blk + 3]])
+    frames_s, starts_s, valid_s = sharded_extract_frames(
+        jnp.asarray(x), tb, mesh, frame_len=F, timing_offset=-7,
+        max_frames=4,
+    )
     frames_u, starts_u, valid_u = extract_frames_batched(
         jnp.asarray(x.transpose(1, 0, 2)), tb,
         frame_len=F, timing_offset=-7, max_frames=4,
@@ -112,16 +98,15 @@ def test_sharded_extract_tm_matches_unsharded(rng):
 
 
 def test_sharded_receive_chain_two_frames(rng):
-    """The FULL multi-chip receive chain
-    (`parallel.shard.sharded_minn_rtl_receive_tm`): a real two-frame
-    Minn-RTL stimulus (reference minn_rtl.py:884-889 geometry) with the
-    SECOND frame's window spanning a seq-shard seam -> sharded TM detect +
-    sharded device-side frame re-emission == the unsharded
-    `MinnRTLDetector.detect_fused_frames` chain bit-for-bit, both frames
-    recovered, and the demodulated data symbol at the noise floor."""
+    """The multi-device receive chain (`parallel.shard.
+    sharded_minn_rtl_receive`): a real two-frame Minn-RTL stimulus
+    (reference minn_rtl.py:884-889 geometry) with the SECOND frame's window
+    spanning a seq-shard seam -> sharded fused detect + sharded device-side
+    frame re-emission == the unsharded `MinnRTLDetector.detect_frames`
+    chain bit-for-bit, both frames recovered, and the demodulated data
+    symbol at the noise floor."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from ofdm_sync_tpu.kernels.pallas_tm_common import to_time_tiled
     from ofdm_sync_tpu.models.detectors import MinnRTLDetector
     from ofdm_sync_tpu.ops.estimate import (
         equalize, evm_rms_db, align_complex_gain, ls_channel_estimate,
@@ -130,12 +115,12 @@ def test_sharded_receive_chain_two_frames(rng):
         build_minn_rtl_preamble, ofdm_fft_used,
     )
     from ofdm_sync_tpu.params import MinnRTLParams, SystemParams
-    from ofdm_sync_tpu.parallel.shard import sharded_minn_rtl_receive_tm
+    from ofdm_sync_tpu.parallel.shard import sharded_minn_rtl_receive
     from ofdm_sync_tpu.pipelines import common
 
     Q = 16
-    R, NT, n_seq = 512, 8, 4
-    Ltm = NT * R                      # 4096; seq shard = 1024
+    n_seq = 4
+    Ltm = 4096                        # seq shard = 1024
     sys_p = SystemParams(
         n_fft=64, num_active=48, cp_len=16, sample_rate_hz=1e6,
         # second frame starts at pre_pad + 2*frame_len = 924 and spans the
@@ -164,8 +149,8 @@ def test_sharded_receive_chain_two_frames(rng):
 
     # unsharded flagship chain
     det = MinnRTLDetector(sys_p, params)
-    result, frames_u, starts_u, valid_u = det.detect_fused_frames(
-        rx, frame_len=frame_len, max_frames=4, rows=R, interpret=True,
+    result, frames_u, starts_u, valid_u = det.detect_frames(
+        rx, frame_len=frame_len, max_frames=4, interpret=True,
     )
     # both true frames must be among the detected windows (start = s0 - 1:
     # the RTL peak sits at s0 + 6Q - 1)
@@ -179,20 +164,18 @@ def test_sharded_receive_chain_two_frames(rng):
         assert hits, (ts, starts_u, valid_u)
         true_k.append(hits[0])
 
-    # sharded flagship chain (mesh (1, n_seq); batch 1 in lane 0)
+    # sharded chain (mesh (1, n_seq))
     mesh = make_stream_mesh(1, n_seq, devices=jax.devices()[:n_seq])
     planar = jnp.asarray(
         np.stack([rx[0].real, rx[0].imag]).astype(np.float32)
     )[:, None, :]
-    xt, G, NTx = to_time_tiled(planar, R)
-    assert (G, NTx) == (1, NT)
-    table, frames_s, starts_s, valid_s = sharded_minn_rtl_receive_tm(
-        xt.reshape(G, NT, 2 * R, 128), mesh,
+    table, frames_s, starts_s, valid_s = sharded_minn_rtl_receive(
+        planar, mesh,
         quarter_len=Q, smooth_shift=params.smooth_shift,
         threshold_value=params.threshold_value,
         threshold_frac_bits=params.threshold_frac_bits,
-        hysteresis=params.hysteresis, stream_len=Ltm, rows=R, channels=2,
-        batch=1, timing_offset=params.timing_offset - 6 * Q,
+        hysteresis=params.hysteresis,
+        timing_offset=params.timing_offset - 6 * Q,
         frame_len=frame_len, max_frames=4, interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(valid_s)[0], valid_u)
@@ -219,56 +202,3 @@ def test_sharded_receive_chain_two_frames(rng):
             jnp.asarray(eq), jnp.asarray(setup.data_used))
         evm, evm_db = evm_rms_db(eq_al, jnp.asarray(setup.data_used))
         assert float(evm) < 0.10, (k, float(evm), float(evm_db))
-
-
-@pytest.mark.slow
-def test_tm_detect_then_extract_end_to_end(rng):
-    """Full production multi-chip round: sharded TM detect -> sharded TM
-    frame re-emission, frames equal to host-sliced windows at the detected
-    peaks."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    from ofdm_sync_tpu.kernels.pallas_tm_common import to_time_tiled
-    from ofdm_sync_tpu.parallel.shard import (
-        sharded_minn_rtl_detect_fused_tm,
-    )
-
-    Q = 32
-    KW = dict(
-        quarter_len=Q, smooth_shift=3, threshold_value=3276,
-        threshold_frac_bits=15, hysteresis=2,
-    )
-    n_seq = 4
-    mesh = make_stream_mesh(1, n_seq, devices=jax.devices()[:n_seq])
-    R = 512
-    NT = 8
-    Ltm = NT * R
-    blk = Ltm // n_seq
-    batch = 2
-    F = 5 * Q + 64
-    x = (0.1 * rng.standard_normal((4, batch, Ltm))).astype(np.float32)
-    A = rng.standard_normal(Q) + 1j * rng.standard_normal(Q)
-    pre = np.concatenate([-A, A, A, -A, -A])
-    pre /= np.sqrt(np.mean(np.abs(pre) ** 2))
-    pos = blk - 3 * Q  # preamble straddles the first seam
-    for c, comp in ((0, pre.real), (1, pre.imag), (2, pre.real),
-                    (3, pre.imag)):
-        x[c, 0, pos : pos + 5 * Q] += 3 * comp.astype(np.float32)
-    xt, G, _ = to_time_tiled(jnp.asarray(x), R)
-    xt = xt.reshape(G, NT, 4 * R, 128)
-    table = sharded_minn_rtl_detect_fused_tm(
-        xt, mesh, **KW, stream_len=Ltm, rows=R, batch=batch,
-        interpret=True,
-    )
-    assert int(np.asarray(table.count)[0]) >= 1
-    frames, starts, valid = sharded_extract_frames_tm(
-        xt, table, mesh, frame_len=F, stream_len=Ltm, channels=4, rows=R,
-        batch=batch, timing_offset=-(5 * Q), max_frames=4,
-    )
-    peak = int(np.asarray(table.peak_idx)[0, 0])
-    start = min(max(peak - 5 * Q, 0), Ltm - F)
-    assert int(np.asarray(starts)[0, 0]) == start
-    assert bool(np.asarray(valid)[0, 0])
-    np.testing.assert_array_equal(
-        np.asarray(frames)[0, 0], x[:, 0, start : start + F]
-    )

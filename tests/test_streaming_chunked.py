@@ -212,3 +212,71 @@ def test_metric_on_stream_shorter_than_lag():
         threshold_value=3276, threshold_frac_bits=15,
     )
     assert not bool(np.asarray(st.above_threshold).any())
+
+_DETECT_KW = {k: v for k, v in PARAMS._asdict().items() if k != "tie"}
+
+
+@pytest.mark.parametrize("chunk", [31, 96, 1000, 4096])
+def test_chunked_fixed_chunk_sizes(rng, chunk):
+    """A live receiver's fixed block size, shorter and longer than the 3Q
+    delay line, == one-shot detection of the whole stream."""
+    iq = _make_stream(rng)
+    splits = range(chunk, iq.shape[-1], chunk)
+    table = _run_chunked(iq, splits)
+    _, ref = minn_rtl_detect_planar(jnp.asarray(iq), **_DETECT_KW)
+    assert int(ref.count) >= 2
+    for f in ("valid", "closed", "gate_start", "gate_close", "peak_idx",
+              "count"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(table, f)), np.asarray(getattr(ref, f)),
+            err_msg=f,
+        )
+    # the chunked and one-shot window sums differ by float reassociation
+    np.testing.assert_allclose(np.asarray(table.peak_value),
+                               np.asarray(ref.peak_value), rtol=1e-3,
+                               atol=1e-6)
+
+
+def test_chunked_batch_of_streams_vmapped():
+    """The step vmapped over a batch of streams (the live-receiver shape
+    the smoke run times) == the batched one-shot detection."""
+    import jax
+
+    from ofdm_sync_tpu.conformance.device_checks import minn_stimulus, table_diff
+    from ofdm_sync_tpu.kernels.minn_rtl_triton import minn_rtl_detect
+
+    B, n_chunks, chunk = 4, 8, 512
+    x = minn_stimulus(B, n_chunks * chunk, PARAMS.quarter_len, every=1)
+    streams = jnp.moveaxis(x, 1, 0).reshape(B, 2, 2, -1)
+    step = jax.jit(jax.vmap(
+        lambda s, c: minn_rtl_stream_step(s, c, params=PARAMS)
+    ))
+    state = jax.vmap(lambda _: minn_rtl_stream_init(PARAMS, 2))(
+        jnp.arange(B)
+    )
+    for k in range(n_chunks):
+        state = step(state, streams[..., k * chunk:(k + 1) * chunk])
+    table = jax.vmap(
+        lambda s: minn_rtl_stream_finalize(s, params=PARAMS)
+    )(state)
+    ref = minn_rtl_detect(x, **_DETECT_KW)
+    assert table_diff(ref, table, name="stream") == []
+    assert int(np.asarray(ref.count).sum()) >= B
+
+
+def test_epoch_headroom_guard():
+    import warnings
+
+    from ofdm_sync_tpu.kernels.streaming_chunked import (
+        EPOCH_HORIZON, epoch_headroom,
+    )
+
+    state = minn_rtl_stream_init(PARAMS, branches=2)
+    assert epoch_headroom(state) == EPOCH_HORIZON
+    near = state._replace(base=jnp.int32(EPOCH_HORIZON - 1000))
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        assert epoch_headroom(near) == 1000
+    assert any(issubclass(x.category, RuntimeWarning) for x in w)
+    with pytest.raises(OverflowError):
+        epoch_headroom(state._replace(base=jnp.int32(EPOCH_HORIZON)))

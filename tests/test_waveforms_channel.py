@@ -116,8 +116,8 @@ def test_fft_convolve_matches_numpy(rng):
 
 
 def test_fft_convolve_ols_matches_monolithic(rng):
-    """Overlap-save convolution (the TPU production matched-filter form,
-    tools/perf_probe13.py) == the monolithic-FFT form up to f32 rounding,
+    """Overlap-save convolution (the batched matched-filter form) == the
+    monolithic-FFT form up to f32 rounding,
     including windows straddling block seams and the ragged last block."""
     T = 96
     for L in (900, 1024 - T + 1, 2000):  # ragged / exact-multiple / long
